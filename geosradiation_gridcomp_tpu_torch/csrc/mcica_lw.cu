@@ -5,10 +5,9 @@
 // (ops/mcica.py:generate_stochastic_clouds + clear_counts_three_band +
 // models/rrtmg/cldprmc_lw.py:cldprmc_lw). Where the TPU kernel used the
 // chip's hardware PRNG and a polynomial fit of the condensate table, this
-// kernel draws the oracle's own threefry-2x32 stream (the jax.random
-// partitionable scheme: 4 per-column subkeys, counter g*nlay + l) and reads
-// the exact (3, 1000) xcw class table, so its masks and counts equal the
-// oracle's bit for bit.
+// kernel draws the oracle's own threefry-2x32 stream and reads the exact
+// (3, 1000) xcw class table (mcica_gen.cuh, shared with K2), so its masks
+// and counts equal the oracle's bit for bit.
 //
 // Bound on the H100: integer ALU, 4 threefry calls of 20 rounds per
 // (column, layer, g-point) (3.3e8 calls at 8192 x 72 x 140), then writing
@@ -18,62 +17,15 @@
 // random fields never touch memory. The class table sits in shared memory.
 // A column with no cloud fraction anywhere skips the generator and writes
 // zeros. The cloudy mask (OR over g) and the clear counts are shared-memory
-// reductions. Products that decide an index or feed an exact comparison
-// use __fmul_rn/__fadd_rn, so no contraction into FMA changes their
-// rounding from the plain PyTorch twin.
+// reductions.
 
-#include "common.cuh"
+#include "mcica_gen.cuh"
 
 namespace {
 
 using namespace geosrad;
 
 constexpr int BLOCK = 160;
-constexpr int ZCW_N1 = 1000;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-    return __funnelshift_l(x, x, r);
-}
-
-#define TF_ROUND(r) x0 += x1; x1 = rotl(x1, r); x1 ^= x0;
-
-// Threefry-2x32, 20 rounds, count words (0, ctr): returns w0 ^ w1.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t ctr) {
-    const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-    uint32_t x0 = k0;
-    uint32_t x1 = ctr + k1;
-    TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-    x0 += k1; x1 += k2 + 1u;
-    TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-    x0 += k2; x1 += k0 + 2u;
-    TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-    x0 += k0; x1 += k1 + 3u;
-    TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-    x0 += k1; x1 += k2 + 4u;
-    TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-    x0 += k2; x1 += k0 + 5u;
-    return x0 ^ x1;
-}
-
-#undef TF_ROUND
-
-// jax.random.uniform's float in [0, 1) from 32 random bits.
-__device__ __forceinline__ float unit_float(uint32_t bits) {
-    return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
-
-// Condensate scaling: linear in the cdf along the class column.
-__device__ __forceinline__ float zcw_lookup(const float* zcw, int cls,
-                                            float cdf) {
-    const float rind1 = __fadd_rn(__fmul_rn(cdf, float(ZCW_N1 - 1)), 1.0f);
-    int ind1 = static_cast<int>(floorf(rind1));
-    ind1 = ind1 < 1 ? 1 : (ind1 > ZCW_N1 - 1 ? ZCW_N1 - 1 : ind1);
-    const float f1 = __fsub_rn(rind1, static_cast<float>(ind1));
-    const float lo = zcw[cls * ZCW_N1 + ind1 - 1];
-    const float hi = zcw[cls * ZCW_N1 + ind1];
-    return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.0f, f1)), __fmul_rn(hi, f1));
-}
 
 __global__ void __launch_bounds__(BLOCK)
 mcica_lw_kernel(const uint32_t* __restrict__ keys,
@@ -105,36 +57,18 @@ mcica_lw_kernel(const uint32_t* __restrict__ keys,
     for (int l = g; l < nlay; l += BLOCK) flag[l] = 0;
     if (inhm != 0)
         for (int i = g; i < 3 * ZCW_N1; i += BLOCK) zcw[i] = zcw_cols[i];
-    bool any_cloud = false;
-    for (int l = 0; l < nlay; ++l) any_cloud = any_cloud || cldf[row + l] > 0.0f;
+    const Column c{keys + static_cast<size_t>(col) * 8, alpha + row,
+                   rcorr + row, cldf + row, ciwp + row, clwp + row,
+                   sigcls + row, zcw, nlay, cloud_mh, cloud_lm, inhm,
+                   cwp_tiny};
+    const bool cloud = any_cloud(c);
     __syncthreads();
 
-    bool cl_tot = false, cl_high = false, cl_mid = false, cl_low = false;
-    if (active && any_cloud) {
+    CloudFlags f;
+    if (active && cloud) {
         const int band = band_of(g);
-        const uint32_t* k = keys + static_cast<size_t>(col) * 8;
-        float c1 = 0.0f, c3 = 0.0f;
-        for (int l = 0; l < nlay; ++l) {
-            const uint32_t ctr = static_cast<uint32_t>(g * nlay + l);
+        f = subcolumn(c, g, [&](int l, bool cy, float ci, float cw) {
             const size_t i = row + l;
-            // presence chain: keep this layer's draw where cdf2 >= alpha
-            const float u1 = unit_float(threefry_bits(k[0], k[1], ctr));
-            const float u2 = unit_float(threefry_bits(k[2], k[3], ctr));
-            if (l == 0 || u2 >= alpha[i]) c1 = u1;
-            const bool cl = c1 >= 1.0f - cldf[i];
-            float z = 1.0f;
-            if (inhm != 0) {
-                // condensate chain
-                const float u3 = unit_float(threefry_bits(k[4], k[5], ctr));
-                const float u4 = unit_float(threefry_bits(k[6], k[7], ctr));
-                if (l == 0 || u3 >= rcorr[i]) c3 = u4;
-                z = zcw_lookup(zcw, sigcls[i], c3);
-            }
-            float ci = cl ? __fmul_rn(ciwp[i], z) : 0.0f;
-            float cw = cl ? __fmul_rn(clwp[i], z) : 0.0f;
-            if (ci <= cwp_tiny) ci = 0.0f;
-            if (cw <= cwp_tiny) cw = 0.0f;
-            const bool cy = cl && (ci > 0.0f || cw > 0.0f);
             const float ti = (cy && ci > 0.0f)
                 ? __fmul_rn(ci, absice[i * NBND + band]) : 0.0f;
             const float tl = (cy && cw > 0.0f)
@@ -142,22 +76,11 @@ mcica_lw_kernel(const uint32_t* __restrict__ keys,
             const float tau = __fadd_rn(ti, tl);
             taucmc[i * NGPT + g] = tau;
             if (tau > 0.0f) atomicOr(&flag[l], 1);
-            if (cy) {
-                cl_tot = true;
-                if (l < cloud_mh - 1) cl_high = true;
-                if (l >= cloud_mh - 1 && l < cloud_lm - 1) cl_mid = true;
-                if (l >= cloud_lm - 1) cl_low = true;
-            }
-        }
+        });
     } else if (active) {
         for (int l = 0; l < nlay; ++l) taucmc[(row + l) * NGPT + g] = 0.0f;
     }
-    if (active) {
-        atomicAdd(&clear[0], cl_tot ? 0 : 1);
-        atomicAdd(&clear[1], cl_high ? 0 : 1);
-        atomicAdd(&clear[2], cl_mid ? 0 : 1);
-        atomicAdd(&clear[3], cl_low ? 0 : 1);
-    }
+    if (active) count_clear(clear, f);
     __syncthreads();
     for (int l = g; l < nlay; l += BLOCK) cloudy[row + l] = flag[l] ? 1 : 0;
     if (g < 4) counts[col * 4 + g] = clear[g];

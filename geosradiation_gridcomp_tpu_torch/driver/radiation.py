@@ -1,11 +1,11 @@
-"""Radiation driver, IRRAD (longwave) half: intermittent refresh + cheap
-per-heartbeat updates.
+"""Radiation driver: intermittent refresh + cheap per-heartbeat updates.
 
-Port of the IRRAD parts of geosradiation_gridcomp_tpu/driver/radiation.py:
-`irrad_refresh` (RRTMG branch, with the optional aerosol and the
-no-aerosol second pass), `irrad_update`, `heating_rates` and
-`surface_lw_linearization`. The composite heating-rate synthesis matches
-GEOS_RadiationGridComp.F90:798-819.
+Port of geosradiation_gridcomp_tpu/driver/radiation.py, RRTMG branches:
+SOLAR `solar_refresh` (with the optional aerosol and the no-aerosol
+second pass) and `solar_update`; IRRAD `irrad_refresh` (likewise) and
+`irrad_update`; `heating_rates` and `surface_lw_linearization`. The
+composite heating-rate synthesis matches GEOS_RadiationGridComp.F90:
+798-819.
 
 AtmosInputs carries the SOLAR/IRRAD import fields as column batches of
 torch tensors, TOA-first.
@@ -20,8 +20,10 @@ from geosradiation_gridcomp_tpu.constants import CP, GRAV
 
 from ..models.rrtmg.lw import (RRTMGLW, level_temperatures, mid_heights,
                                rrtmg_lw)
+from ..models.rrtmg.sw import RRTMGSW, rrtmg_sw
+from .astronomy import earth_sun_factor
 from .diagnostics import UNDEF, band_brightness_temperature
-from .state import IrradState
+from .state import IrradState, SolarState
 
 _AMD, _AMW, _AMO3 = 28.9660, 18.0160, 47.9982
 
@@ -86,6 +88,127 @@ def _incloud_paths(inp):
     clwp = inp.ql * dp * 1e3 / GRAV * icq
     return ciwp, clwp
 
+
+# --------------------------------------------------------------------------
+# SOLAR
+# --------------------------------------------------------------------------
+
+def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
+                  ict, icb, taua=None, ssaa=None, asya=None,
+                  nlit=None, ncld=None, sw: RRTMGSW = None,
+                  plain=False) -> SolarState:
+    """Full SW RT; stores NORMALIZED internals (fractions of TOA insolation
+    at the refresh-time zenith angle). cosz: [ncol] mean cosine over the
+    refresh interval (lit part).
+
+    With aerosols present and "no_aerosol" in config.outputs, a second
+    aerosol-free pass fills the no-aerosol internals; without aerosols
+    they alias the all-sky ones, as in the reference. sw: the RRTMGSW
+    holding the tables (built on the inputs' device when None).
+    plain=True runs the kernels' plain PyTorch twins (see rrtmg_sw).
+    """
+    if sw is None:
+        sw = RRTMGSW.from_reference_tables(inp.t.device)
+    st = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa,
+                             asya, nlit, ncld, sw, plain)
+    if taua is None:
+        return st._replace(flxnan=st.flxn, flcnan=st.flcn,
+                           flxunan=st.flxun)
+    if config.wants("no_aerosol"):
+        na = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, None,
+                                 None, None, nlit, ncld, sw, plain)
+        return st._replace(flxnan=na.flxn, flcnan=na.flcn,
+                           flxunan=na.flxun)
+    return st
+
+
+def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
+                        nlit, ncld, sw, plain) -> SolarState:
+    if config.sw_scheme == Scheme.CHOU:
+        raise NotImplementedError(
+            "Chou-Suarez SW is not ported yet (ROADMAP Queue 1: Chou-Suarez)")
+    if config.sw_scheme == Scheme.RRTMGP:
+        raise NotImplementedError(
+            "RRTMGP SW is not ported yet (ROADMAP Queue 1: RRTMGP)")
+    play, h2ovmr, o3vmr = _common_derived(inp)
+    zm = mid_heights(play, inp.t, inp.ple[..., -1])
+    ciwp, clwp = _incloud_paths(inp)
+    out = rrtmg_sw(sw, inp.ple, play, inp.t, cosz,
+                   inp.albvr, inp.albvf, inp.albnr, inp.albnf,
+                   h2ovmr, o3vmr, inp.co2, inp.ch4,
+                   torch.full_like(inp.co2, 0.2095),
+                   inp.fcld, ciwp, clwp, inp.ri, inp.rl,
+                   zm, inp.lats, doy,
+                   taua=taua, ssaa=ssaa, asya=asya,
+                   scon=config.solar_constant,
+                   isolvar=config.isolvar,
+                   solcycfrac=(config.solcycfrac
+                               if config.isolvar == 1 else None),
+                   indsolvar=config.indsolvar,
+                   iceflag=config.iceflag_sw, liqflag=config.liqflag_sw,
+                   cloud_mh=ict, cloud_lm=icb,
+                   inhm=config.condensate_inhomogeneity, nlit=nlit,
+                   ncld=ncld, plain=plain)
+    # normalize by refresh-time TOA insolation
+    s0 = config.effective_scon() * torch.clamp(cosz, min=1e-6)
+    inv = torch.where(cosz > 0.0, 1.0 / s0, torch.zeros_like(s0))
+
+    def nv(x):
+        return x * inv.reshape((-1,) + (1,) * (x.ndim - 1))
+    if config.wants("clear_counts"):
+        cldfrc = 1.0 - out["clear_counts"].to(out["bbfd"].dtype) / 112.0
+    else:
+        cldfrc = torch.full((cosz.shape[0], 4), UNDEF, dtype=cosz.dtype,
+                            device=cosz.device)
+    undef = _undef_like(out["bbfd"])
+    return SolarState(
+        flxn=nv(out["bbfd"] - out["bbfu"]),
+        flcn=nv(out["bbcd"] - out["bbcu"]),
+        flxun=nv(out["bbfu"]), flcun=nv(out["bbcu"]),
+        fdir_uv_n=nv(out["uvrr"]), fdif_uv_n=nv(out["uvrf"] - out["uvrr"]),
+        fdir_par_n=nv(out["parr"]), fdif_par_n=nv(out["parf"] - out["parr"]),
+        fdir_nir_n=nv(out["nirr"]), fdif_nir_n=nv(out["nirf"] - out["nirr"]),
+        flx_sfc_band_n=nv(out["fndsbnd"]),
+        drband_n=nv(out["drband"]), dfband_n=nv(out["dfband"]),
+        cldfrc=cldfrc, flxnan=undef, flcnan=undef, flxunan=undef)
+
+
+def solar_update(state: SolarState, cosz_now, doy_now,
+                 config: RadiationConfig):
+    """Cheap per-heartbeat export: rescale the normalized internals by the
+    CURRENT TOA insolation (UPDATE_EXPORT, GEOS_SolarGridComp.F90:6676+).
+
+    Returns dict of W/m^2 exports.
+    """
+    doy_now = torch.as_tensor(doy_now, dtype=torch.float32,
+                              device=cosz_now.device)
+    sln = (config.effective_scon() * earth_sun_factor(doy_now)
+           * torch.clamp(cosz_now, min=0.0))
+
+    def scv(x):
+        return x * sln.reshape((-1,) + (1,) * (x.ndim - 1))
+
+    def sc(x):
+        # the missing-data marker survives the rescale
+        return torch.where(x >= UNDEF, x, scv(x))
+    out = dict(
+        fsw=scv(state.flxn), fsc=scv(state.flcn),
+        fswu=scv(state.flxun), fscu=scv(state.flcun),
+        drpar=sc(state.fdir_par_n), dfpar=sc(state.fdif_par_n),
+        druvr=sc(state.fdir_uv_n), dfuvr=sc(state.fdif_uv_n),
+        drnir=sc(state.fdir_nir_n), dfnir=sc(state.fdif_nir_n))
+    if config.wants("band_sfc"):
+        out.update(flx_sfc_band=sc(state.flx_sfc_band_n),
+                   drband=sc(state.drband_n), dfband=sc(state.dfband_n))
+    if config.wants("no_aerosol"):
+        out.update(fswna=sc(state.flxnan), fscna=sc(state.flcnan),
+                   fswuna=sc(state.flxunan))
+    return out
+
+
+# --------------------------------------------------------------------------
+# IRRAD
+# --------------------------------------------------------------------------
 
 def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
                   ict, icb, taua=None, ssaa=None, asya=None,

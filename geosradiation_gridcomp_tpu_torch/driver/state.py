@@ -1,4 +1,5 @@
-"""LW internal state at refresh time (the reference's IrradState).
+"""Radiation internal states at refresh time (the reference's SolarState
+and IrradState).
 
 Same fields, same order as geosradiation_gridcomp_tpu/driver/state.py;
 the fields are torch tensors.
@@ -7,6 +8,30 @@ the fields are torch tensors.
 from typing import NamedTuple
 
 import torch
+
+
+class SolarState(NamedTuple):
+    """Normalized SW internal state: fractions of the refresh-time TOA
+    insolation."""
+    flxn: torch.Tensor        # [ncol, nlev+1] net downward
+    flcn: torch.Tensor        # clear-sky net
+    flxun: torch.Tensor       # upward
+    flcun: torch.Tensor       # clear upward
+    fdir_uv_n: torch.Tensor   # [ncol] surface direct UV
+    fdif_uv_n: torch.Tensor
+    fdir_par_n: torch.Tensor
+    fdif_par_n: torch.Tensor
+    fdir_nir_n: torch.Tensor
+    fdif_nir_n: torch.Tensor
+    flx_sfc_band_n: torch.Tensor  # [ncol, 14] surface net per band
+    drband_n: torch.Tensor        # [ncol, 14] surface direct per band
+    dfband_n: torch.Tensor        # [ncol, 14] surface diffuse per band
+    cldfrc: torch.Tensor          # [ncol, 4] McICA total/high/mid/low
+    # no-aerosol variants (== the all-sky values when the run has no
+    # aerosols; UNDEF when pruned by config)
+    flxnan: torch.Tensor          # [ncol, nlev+1] net, no aerosol
+    flcnan: torch.Tensor          # clear net, no aerosol
+    flxunan: torch.Tensor         # upward, no aerosol
 
 
 class IrradState(NamedTuple):

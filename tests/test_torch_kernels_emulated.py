@@ -1,5 +1,5 @@
-"""The CUDA sources of K1, K3 and K4 run on the CPU against their plain
-PyTorch twins.
+"""The CUDA sources of K1-K6 run on the CPU against their plain PyTorch
+twins.
 
 g++ compiles geosradiation_gridcomp_tpu_torch/csrc/*.cu against a host
 emulation of the CUDA subset they use (tests/cuda_emu.h: one std::thread
@@ -8,10 +8,14 @@ wrapper's `launch(lib, ...)` drives the emulated kernel with CPU tensors.
 This checks the kernels' logic here; only the card can check that nvcc
 builds them and how fast they run (chip_smoke.py, tests/test_torch_cuda.py).
 
-Tolerances: K1 exact (it uses the twin's rounding: __fmul_rn/__fadd_rn);
-K3 elementwise within 1e-6 relative and K4 relmax <= 1e-6 (g++ builds with
--ffp-contract=off and the same operation order; libm's expf/powf may
-differ from torch's by an ulp).
+Tolerances: K1 and K2 masks and counts exact, K1 optics exact (it uses
+the twin's rounding: __fmul_rn/__fadd_rn), K2 optics relmax <= 1e-6; K3
+and K5 elementwise within 1e-6 relative and K4 relmax <= 1e-6 (g++
+builds with -ffp-contract=off and the same operation order; libm's
+expf/powf may differ from torch's by an ulp). K6 relmax <= 1e-5: an ulp
+of expf is amplified through the 72-layer adding sweeps and the
+resonance-factored reflectances, and both float32 paths lie up to 7e-6
+from a float64 evaluation of the plain twin on this scene.
 """
 
 import ctypes
@@ -29,13 +33,22 @@ from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
 from geosradiation_gridcomp_tpu_torch.kernels.build import CSRC
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import rtrnmc_cuda
+from geosradiation_gridcomp_tpu_torch.models.rrtmg import spcvmc_cuda
+from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import taumol_lw_cuda
+from geosradiation_gridcomp_tpu_torch.models.rrtmg import taumol_sw_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
     band_abs_coeffs_lw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_sw import \
+    band_optics_coeffs_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
     setcoef_lw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
+    setcoef_sw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import taumol_lw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import taumol_sw
 from geosradiation_gridcomp_tpu_torch.ops import mcica, mcica_cuda
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
@@ -102,7 +115,7 @@ def case():
                        h2o, o3, inp.co2, inp.ch4, inp.n2o,
                        torch.full_like(z, 0.2095), z + 1e-7, inp.cfc11,
                        inp.cfc12, inp.hcfc22, z + 1e-10, lw.planck_tables)
-    return dict(lw=lw, k1=k1, emis=emis, coefs=coefs)
+    return dict(lw=lw, k1=k1, emis=emis, coefs=coefs, inp=inp)
 
 
 @pytest.mark.parametrize("inhm", [0, 1, 2])
@@ -142,3 +155,65 @@ def test_k4_emulated_matches_plain(lib, case):
     assert set(a) == set(b)
     for k in b:
         assert relmax(a[k], b[k]) <= 1e-6, k
+
+
+@pytest.fixture(scope="module")
+def sw_case(case):
+    """The SW kernels' inputs on the same scene: K2's with the SW seed
+    order, setcoef_sw, and K6's optics from the plain twins."""
+    inp = case["inp"]
+    sw = swm.RRTMGSW.from_reference_tables()
+    play, h2o, o3 = rad._common_derived(inp)
+    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
+    ciwp, clwp = rad._incloud_paths(inp)
+    alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
+    coeffs = torch.stack(band_optics_coeffs_sw(inp.ri, inp.rl,
+                                               sw.cloud_tables))
+    k2 = (mcica.subcolumn_keys(play, swm.SEED_ORDER_SW), alpha, rcorr,
+          inp.fcld, ciwp, clwp, mcica._sigma_class(inp.fcld), coeffs)
+    coefs = setcoef_sw(play, inp.t, inp.ple * 0.01, h2o, o3, inp.co2,
+                       inp.ch4, torch.full_like(play, 0.2095),
+                       sw.reference_tables)
+    return dict(sw=sw, k2=k2, coefs=coefs)
+
+
+@pytest.mark.parametrize("inhm", [0, 1, 2])
+def test_k2_emulated_matches_plain(lib, sw_case, inhm):
+    zcw = sw_case["sw"].zcw_cols(inhm)
+    kw = dict(cloud_mh=MH, cloud_lm=LM, inhm=inhm)
+    a = mcica_cuda.launch_sw(lib, *sw_case["k2"], zcw, MH, LM, inhm, 1.0e-20)
+    b = mcica_cuda.mcica_optics_sw_plain(*sw_case["k2"], zcw, **kw)
+    assert 0 < int(b[3].sum()) and int(b[4][3, 0]) == 112
+    assert torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
+    for x, y in zip(a[:3], b[:3]):
+        assert relmax(x, y) <= 1e-6
+
+
+def test_k5_emulated_matches_plain(lib, sw_case):
+    c = sw_case["coefs"]
+    assert bool(c.lower.any()) and not bool(c.lower.all())
+    tabs = sw_case["sw"].taumol_tables
+    a = taumol_sw_cuda.launch(lib, c, tabs)
+    b = taumol_sw(c, tabs)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("aerosol,ncld", [(False, None), (True, 2)])
+def test_k6_emulated_matches_plain(lib, sw_case, aerosol, ncld):
+    tau, ssa, asm, cldy, _ = mcica_cuda.mcica_optics_sw_plain(
+        *sw_case["k2"], sw_case["sw"].zcw_cols(1), cloud_mh=MH, cloud_lm=LM)
+    tg, tr = taumol_sw(sw_case["coefs"], sw_case["sw"].taumol_tables)
+    rng = np.random.default_rng(6)
+    f = lambda lo, hi, shape: torch.as_tensor(
+        rng.uniform(lo, hi, shape).astype(np.float32))
+    aero = ((f(0.0, 0.1, (NCOL, NLEV, 14)), f(0.8, 1.0, (NCOL, NLEV, 14)),
+             f(0.5, 0.8, (NCOL, NLEV, 14))) if aerosol else (None,) * 3)
+    args = (tg, tr, f(0.1, 20.0, (NCOL, 112)),
+            torch.tensor([0.7, 0.3, 1e-5, 0.95]), f(0.05, 0.3, (NCOL, 14)),
+            f(0.05, 0.3, (NCOL, 14)), cldy, tau, ssa, asm, *aero)
+    a = spcvmc_cuda.launch(lib, *args, adjflux=1.02, ncld=ncld)
+    b = spcvmc_sw(None, *args, adjflux=1.02, ncld=ncld)
+    assert set(a) == set(b)
+    for k in b:
+        assert relmax(a[k], b[k]) <= 1e-5, k
