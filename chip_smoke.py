@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 McICA + LW cloud optics, K2 McICA + SW
-cloud optics, K3 taumol-LW, K4 rtrnmc, K5 taumol-SW, K6 spcvmc) from
-geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, then:
+cloud optics, K3 taumol-LW, K4 rtrnmc, K5 taumol-SW, K6 spcvmc, K7 raw
+McICA draws, P1 forward fill, P2 table gathers, P3 taumol-LW bisection)
+from geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, one
+nvcc per source side by side, then:
 
 1. kernel phases at 1024 columns x 72 levels: each kernel against its
    plain PyTorch twin on the same inputs on the card (K1, K2: cloudy masks
@@ -20,7 +22,20 @@ geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, then:
    plain path on the same card to relmax <= 5e-5, every SolarState field
    and SW export to relmax <= 5e-4 with at most 0.5 % of columns beyond
    5e-5 (tools/verify_tpu.py:279-281); fluxes must be physical; the wall
-   time of the refresh with the kernels and with the plain twins.
+   time of the refresh with the kernels and with the plain twins;
+3. kernel phases of the verification and profiling kernels, each against
+   its plain twin on the same inputs, with both times: K7 at 1024 x 72
+   and P1 on [1024, 72, 140] exactly equal; P2's gather_rows and
+   gather_lanes at the profiling tool's 8192 x 72 points exactly equal;
+   P3's full variant equal to K3 bit for bit and every variant within
+   relmax 5e-4 of its twin in every band, at 1024 x 72;
+4. verify path: the verification suite's entry point
+   (tools/verify.py --quick, 512 x 72), every gate passing; K7 must
+   launch there;
+5. profiling path: the three profiling entry points (fused_mcica_check
+   at 1024 columns, gather_micro at its default size, taumol_lw_bisect
+   at 1024 x 72), each raising on a failed check; P1, both P2 kernels and
+   P3 must launch there.
 
     python3 chip_smoke.py --profile
 
@@ -31,7 +46,8 @@ and the solar_refresh, irrad_refresh and subcolumn_keys stages alone
 (CUDA events).
 
 Prints the card's name and power limit, a JSON line with each kernel's
-launches, error and times, and as its last line
+launches (counted on the path named by its `path`: step, verify or
+profiling), error and times, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
 """
@@ -273,6 +289,133 @@ def sw_kernel_phases(torch, dev, inp, play, h2o, o3, zm, alpha, rcorr, ciwp,
     return results
 
 
+def raw_and_profiling_kernel_phases(torch, dev):
+    """K7, P1, P2 and P3 against their plain twins: K7, P1 and P3 at
+    NCOL_KERNEL x NLEV, P2 at the profiling tool's size."""
+    from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
+        NGS_LW, VARIANTS, taumol_lw)
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import (
+        taumol_lw_bisect, taumol_lw_fast)
+    from geosradiation_gridcomp_tpu_torch.ops import mcica
+    from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import (ffill,
+                                                                 ffill_plain)
+    from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
+        gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
+    from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
+        mcica_subcols_raw, mcica_subcols_raw_plain)
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+    from geosradiation_gridcomp_tpu_torch.tools.profiling.taumol_lw_bisect \
+        import lw_coefs
+
+    ncol = NCOL_KERNEL
+    results = {}
+
+    def exact(name, a, b):
+        gate(f"{name} mismatches", float((a != b).sum()), 0)
+        return max_abs(a, b)
+
+    inp = example_inputs(ncol, NLEV, seed=SEED, device=dev)
+    play = rad._common_derived(inp)[0]
+    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
+    alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
+    k7_args = (mcica.subcolumn_keys(play), alpha, rcorr, inp.fcld)
+    print(f"K7 mcica_subcols_raw at {ncol} x {NLEV}:")
+    a = mcica_subcols_raw(*k7_args, nsub=140)
+    b = mcica_subcols_raw_plain(*k7_args, nsub=140)
+    results["mcica_subcols_raw"] = dict(
+        max_abs_err=max(exact("cloudy", a[0], b[0]), exact("v3", a[1], b[1])),
+        ms=time_ms(torch, lambda: mcica_subcols_raw(*k7_args, nsub=140), 20),
+        plain_ms=time_ms(torch, lambda: mcica_subcols_raw_plain(
+            *k7_args, nsub=140), 3))
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    v = torch.rand(ncol, NLEV, 140, device=dev, generator=gen)
+    keep = (torch.rand(ncol, NLEV, 140, device=dev, generator=gen)
+            > 0.6).float()
+    print(f"P1 ffill on [{ncol}, {NLEV}, 140]:")
+    results["ffill"] = dict(
+        max_abs_err=exact("ffill", ffill(v, keep), ffill_plain(v, keep)),
+        ms=time_ms(torch, lambda: ffill(v, keep), 20),
+        plain_ms=time_ms(torch, lambda: ffill_plain(v, keep), 3))
+
+    n, rows = 8192 * NLEV, 585
+    tab = torch.randn(rows, 16, device=dev, generator=gen)
+    tabt = torch.nn.functional.pad(tab.T, (0, 640 - rows)).contiguous()
+    idx = torch.randint(0, rows, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    idx2d = idx.reshape(-1, 128)
+    print(f"P2 gather_rows, gather_lanes at {n} points, {rows} x 16 table:")
+    results["gather_rows"] = dict(
+        max_abs_err=exact("gather_rows", gather_rows(idx, tab),
+                          gather_rows_plain(idx, tab)),
+        ms=time_ms(torch, lambda: gather_rows(idx, tab), 20),
+        plain_ms=time_ms(torch, lambda: gather_rows_plain(idx, tab), 20))
+    results["gather_lanes"] = dict(
+        max_abs_err=exact("gather_lanes", gather_lanes(idx2d, tabt),
+                          gather_lanes_plain(idx2d, tabt)),
+        ms=time_ms(torch, lambda: gather_lanes(idx2d, tabt), 20),
+        plain_ms=time_ms(torch, lambda: gather_lanes_plain(idx2d, tabt),
+                         20))
+
+    coefs, tabs = lw_coefs(dev, ncol)
+    print(f"P3 taumol_lw_bisect at {ncol} x {NLEV}:")
+    k3 = taumol_lw_fast(coefs, tabs)
+    full = taumol_lw_bisect(coefs, tabs, VARIANTS["full"])
+    for name, x, y in zip(("taug", "pfracs"), full, k3):
+        exact(f"full vs K3 {name}", x, y)
+    err = 0.0
+    for name, parts in VARIANTS.items():
+        tg_k, pf_k = taumol_lw_bisect(coefs, tabs, parts)
+        tg_p, pf_p = taumol_lw(coefs, tabs, parts=parts)
+        gate(f"{name} taug relmax, worst band",
+             band_relmax(tg_k, tg_p, NGS_LW), 5e-4)
+        gate(f"{name} pfracs relmax, worst band",
+             band_relmax(pf_k, pf_p, NGS_LW), 5e-4)
+        err = max(err, max_abs(tg_k, tg_p), max_abs(pf_k, pf_p))
+        ms = time_ms(torch, lambda: taumol_lw_bisect(coefs, tabs, parts), 20)
+        print(f"  {name}: {ms:.4f} ms")
+    results["taumol_lw_bisect"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: taumol_lw_bisect(coefs, tabs,
+                                                   VARIANTS["full"]), 20),
+        plain_ms=time_ms(torch, lambda: taumol_lw(coefs, tabs), 3))
+    return results
+
+
+def verify_path(torch):
+    """The verification suite through its entry point, at --quick size;
+    returns the launches it made."""
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    from geosradiation_gridcomp_tpu_torch.tools import verify
+
+    print("verify: python -m geosradiation_gridcomp_tpu_torch.tools.verify "
+          "--quick")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    verify.main(["--quick"])
+    torch.cuda.synchronize()
+    return dict(LAUNCHES)
+
+
+def profiling_path(torch):
+    """The three profiling entry points; returns the launches they made."""
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    from geosradiation_gridcomp_tpu_torch.tools.profiling import (
+        fused_mcica_check, gather_micro, taumol_lw_bisect)
+
+    print("profiling: fused_mcica_check --ncol 1024, gather_micro, "
+          "taumol_lw_bisect --ncol 1024")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    fused_mcica_check.main(["--ncol", str(NCOL_KERNEL)])
+    gather_micro.main([])
+    taumol_lw_bisect.main(["--ncol", str(NCOL_KERNEL)])
+    torch.cuda.synchronize()
+    return dict(LAUNCHES)
+
+
 def step_phase(torch, dev):
     """radiation_refresh + radiation_update at full width through their
     entry points, as bench.py drives the reference."""
@@ -318,9 +461,7 @@ def step_phase(torch, dev):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the main path: {launches}")
-    for name in SOURCES:
-        if launches.get(name, 0) < 1:
-            raise AssertionError(f"kernel {name} was not launched")
+    require_launched(launches, "step")
     sol_p, irr_p, upd_p = run(plain=True)
     for f in irr._fields:
         gate(f"IrradState.{f} relmax", relmax(getattr(irr, f),
@@ -479,22 +620,43 @@ def profile_phase(torch, step, nwall=30, nprof=5):
               f"events, mean of 10)")
 
 
+_CSRC = "geosradiation_gridcomp_tpu_torch/csrc/"
+_REF = "geosradiation_gridcomp_tpu/"
+# kernel -> (source, the TPU kernel it replaces, the path that must launch
+# it: step, verify or profiling)
 SOURCES = {
-    "mcica_optics_lw": ("geosradiation_gridcomp_tpu_torch/csrc/mcica_lw.cu",
-                        "geosradiation_gridcomp_tpu/ops/mcica_pallas.py:367"),
-    "mcica_optics_sw": ("geosradiation_gridcomp_tpu_torch/csrc/mcica_sw.cu",
-                        "geosradiation_gridcomp_tpu/ops/mcica_pallas.py:588"),
-    "taumol_lw": ("geosradiation_gridcomp_tpu_torch/csrc/taumol_lw.cu",
-                  "geosradiation_gridcomp_tpu/models/rrtmg/"
-                  "taumol_lw_pallas.py:457"),
-    "rtrnmc": ("geosradiation_gridcomp_tpu_torch/csrc/rtrnmc.cu",
-               "geosradiation_gridcomp_tpu/models/rrtmg/rtrnmc_pallas.py:239"),
-    "taumol_sw": ("geosradiation_gridcomp_tpu_torch/csrc/taumol_sw.cu",
-                  "geosradiation_gridcomp_tpu/models/rrtmg/"
-                  "taumol_sw_pallas.py:246"),
-    "spcvmc": ("geosradiation_gridcomp_tpu_torch/csrc/spcvmc.cu",
-               "geosradiation_gridcomp_tpu/models/rrtmg/spcvmc_pallas.py:454"),
+    "mcica_optics_lw": (_CSRC + "mcica_lw.cu",
+                        _REF + "ops/mcica_pallas.py:367", "step"),
+    "mcica_optics_sw": (_CSRC + "mcica_sw.cu",
+                        _REF + "ops/mcica_pallas.py:588", "step"),
+    "taumol_lw": (_CSRC + "taumol_lw.cu",
+                  _REF + "models/rrtmg/taumol_lw_pallas.py:457", "step"),
+    "rtrnmc": (_CSRC + "rtrnmc.cu",
+               _REF + "models/rrtmg/rtrnmc_pallas.py:239", "step"),
+    "taumol_sw": (_CSRC + "taumol_sw.cu",
+                  _REF + "models/rrtmg/taumol_sw_pallas.py:246", "step"),
+    "spcvmc": (_CSRC + "spcvmc.cu",
+               _REF + "models/rrtmg/spcvmc_pallas.py:454", "step"),
+    "mcica_subcols_raw": (_CSRC + "mcica_raw.cu",
+                          _REF + "ops/mcica_pallas.py:483", "verify"),
+    "ffill": (_CSRC + "ffill.cu",
+              "tools/profiling/fused_mcica_check.py:56", "profiling"),
+    "gather_rows": (_CSRC + "gather_micro.cu",
+                    "tools/profiling/gather_micro.py:63", "profiling"),
+    "gather_lanes": (_CSRC + "gather_micro.cu",
+                     "tools/profiling/gather_micro.py:96", "profiling"),
+    "taumol_lw_bisect": (_CSRC + "taumol_lw_bisect.cu",
+                         "tools/profiling/taumol_lw_bisect.py:58",
+                         "profiling"),
 }
+
+
+def require_launched(launches, path):
+    """Raise unless every kernel of the path launched in its run."""
+    for name, (_, _, p) in SOURCES.items():
+        if p == path and launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path} path")
 
 
 def main():
@@ -524,17 +686,24 @@ def main():
 
     dev = torch.device("cuda", 0)
     results = kernel_phases(torch, dev)
+    results.update(raw_and_profiling_kernel_phases(torch, dev))
     launches, step = step_phase(torch, dev)
     if args.profile:
         profile_phase(torch, step)
+    paths = {"step": launches, "verify": verify_path(torch),
+             "profiling": profiling_path(torch)}
+    for path in ("verify", "profiling"):
+        print(f"  kernel launches in the {path} path: {paths[path]}")
+        require_launched(paths[path], path)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, path) in SOURCES.items():
         r = results[name]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=launches[name],
+                            replaces=replaces, path=path,
+                            launches=paths[path][name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"]))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// McICA stochastic cloud subcolumn generator shared by K1 (mcica_lw.cu)
-// and K2 (mcica_sw.cu).
+// McICA stochastic cloud subcolumn generator shared by K1 (mcica_lw.cu),
+// K2 (mcica_sw.cu) and, through its raw draws, K7 (mcica_raw.cu).
 //
 // Computes what the CPU oracle's generate_stochastic_clouds computes for one
 // subcolumn (g-point) of one column: the jax.random threefry-2x32 stream of
@@ -89,13 +89,13 @@ __device__ __forceinline__ bool any_cloud(const Column& c) {
     return any;
 }
 
-// Subcolumn g down the column: calls layer(l, cloudy, ciwp, clwp) for each
-// layer with the subcolumn's cloudy flag and water paths (zero where not
-// cloudy or below cwp_tiny); returns the clear flags.
-template <class Layer>
-__device__ __forceinline__ CloudFlags subcolumn(const Column& c, int g,
-                                                Layer&& layer) {
-    CloudFlags f;
+// The raw draws of subcolumn g down the column: calls raw(l, cl, c3) for
+// each layer with the presence test c1 >= 1 - cldf of the forward-filled
+// presence cdf c1 and, where cond, the forward-filled condensate cdf c3
+// (0 where not cond). Only alpha, rcorr and cldf of the column are read.
+template <class Raw>
+__device__ __forceinline__ void draws(const Column& c, int g, bool cond,
+                                      Raw&& raw) {
     const uint32_t* k = c.keys;
     float c1 = 0.0f, c3 = 0.0f;
     for (int l = 0; l < c.nlay; ++l) {
@@ -104,15 +104,26 @@ __device__ __forceinline__ CloudFlags subcolumn(const Column& c, int g,
         const float u1 = unit_float(threefry_bits(k[0], k[1], ctr));
         const float u2 = unit_float(threefry_bits(k[2], k[3], ctr));
         if (l == 0 || u2 >= c.alpha[l]) c1 = u1;
-        const bool cl = c1 >= 1.0f - c.cldf[l];
-        float z = 1.0f;
-        if (c.inhm != 0) {
+        if (cond) {
             // condensate chain
             const float u3 = unit_float(threefry_bits(k[4], k[5], ctr));
             const float u4 = unit_float(threefry_bits(k[6], k[7], ctr));
             if (l == 0 || u3 >= c.rcorr[l]) c3 = u4;
-            z = zcw_lookup(c.zcw, c.sigcls[l], c3);
         }
+        raw(l, c1 >= 1.0f - c.cldf[l], c3);
+    }
+}
+
+// Subcolumn g down the column: calls layer(l, cloudy, ciwp, clwp) for each
+// layer with the subcolumn's cloudy flag and water paths (zero where not
+// cloudy or below cwp_tiny); returns the clear flags.
+template <class Layer>
+__device__ __forceinline__ CloudFlags subcolumn(const Column& c, int g,
+                                                Layer&& layer) {
+    CloudFlags f;
+    draws(c, g, c.inhm != 0, [&](int l, bool cl, float c3) {
+        const float z = c.inhm != 0 ? zcw_lookup(c.zcw, c.sigcls[l], c3)
+                                    : 1.0f;
         float ci = cl ? __fmul_rn(c.ciwp[l], z) : 0.0f;
         float cw = cl ? __fmul_rn(c.clwp[l], z) : 0.0f;
         if (ci <= c.cwp_tiny) ci = 0.0f;
@@ -125,7 +136,7 @@ __device__ __forceinline__ CloudFlags subcolumn(const Column& c, int g,
             if (l >= c.cloud_mh - 1 && l < c.cloud_lm - 1) f.mid = true;
             if (l >= c.cloud_lm - 1) f.low = true;
         }
-    }
+    });
     return f;
 }
 

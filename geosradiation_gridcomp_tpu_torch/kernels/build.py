@@ -2,7 +2,8 @@
 
 nvcc compiles every source under csrc/ into one shared library with a
 plain C interface, at first use, into build/torch_kernels/ of the
-checkout; the file name carries a hash of the sources and flags, so an
+checkout: one nvcc process per source, all started together, then one
+link. The file name carries a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. The
 library is loaded with ctypes: every pointer and the stream are passed as
 c_void_p, every int as c_int, and each entry point returns
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # No --use_fast_math: tfn and the eta weights need accurate expf and powf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel launches per wrapper name. A wrapper adds one where it launches
 # its kernel and nowhere else.
@@ -50,6 +51,24 @@ def nvcc_path():
     return found
 
 
+def _run_all(cmds, logs):
+    """Run the commands side by side, each writing its output to its log
+    file (so that no pipe fills); raise with the log of the first that
+    fails."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.wait() != 0:
+            for q in procs:
+                q.wait()
+            with open(log) as f:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on "
+                                   f"{cmd[-1]}:\n{f.read()}")
+
+
 def build():
     """Compile csrc/*.cu into one shared library, unless a library of the
     same sources and flags is there already; return its path."""
@@ -64,11 +83,15 @@ def build():
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc = nvcc_path()
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+              for o, s in zip(objs, cus)], [f"{o}.log" for o in objs])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]],
+             [f"{tmp}.log"])
+    for f in [*objs, *(f"{o}.log" for o in objs), f"{tmp}.log"]:
+        os.remove(f)
     os.replace(tmp, path)
     return path
 

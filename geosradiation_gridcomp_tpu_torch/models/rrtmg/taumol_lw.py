@@ -10,6 +10,12 @@ Planck fractions; the troposphere split is the mask `coefs.lower`.
 All coefficient tables live in one packed float32 vector (`TaumolTables`)
 that the CUDA kernel K3 reads too; `pack_taumol_tables` builds it from the
 reference's numpy loaders.
+
+`parts` leaves terms out, for the cost bisection P3 (the plain twin of
+csrc/taumol_lw_bisect.cu): "major" (major species), "minor" (minor species
+and halocarbons), "cont" (self and foreign continua) and "planck" (Planck
+fractions). A part left out contributes zeros; the default, every part,
+is the reference.
 """
 
 from typing import NamedTuple
@@ -40,6 +46,20 @@ _B4_SCALE = np.ones(14, np.float32)
 _B4_SCALE[7:14] = [0.92, 0.88, 1.07, 1.1, 0.99, 0.88, 0.943]
 _B7_SCALE = np.ones(12, np.float32)
 _B7_SCALE[5:11] = [0.92, 0.88, 1.07, 1.1, 0.99, 0.855]
+
+PARTS = frozenset({"major", "minor", "cont", "planck"})
+# the bisection's variants (tools/profiling/taumol_lw_bisect.py:216-225 of
+# the reference: full, no_ep, no_em, maj_only, em_only, none), by the parts
+# each keeps
+VARIANTS = {
+    "full": PARTS,
+    "no_cont": PARTS - {"cont"},
+    "no_minor": PARTS - {"minor"},
+    "no_planck": PARTS - {"planck"},
+    "maj_only": frozenset({"major"}),
+    "minor_only": frozenset({"minor"}),
+    "store_only": frozenset(),
+}
 
 
 class TaumolTables(NamedTuple):
@@ -187,11 +207,14 @@ def _planck_eta(frac_tab, c1, c2, refrat, mult):
 
 
 class _Band:
-    """Per-cell state shared by one band's lower/upper formulas."""
+    """Per-cell state shared by one band's lower/upper formulas; the terms
+    of the parts not in `parts` are zeros."""
 
-    def __init__(self, coefs, tabs, band):
+    def __init__(self, coefs, tabs, band, parts=PARTS):
         self.c = coefs
         self.band = band
+        self.parts = parts
+        self.ng = int(NG_LW[band - 1])
         self.chi = tabs.get(0, "chi_mls")
         self.tab = lambda key: tabs.get(band, key)
         g = slice(int(NGS_LW[band - 1]), int(NGS_LW[band]))
@@ -203,6 +226,10 @@ class _Band:
 
     def col(self, gas):
         return _col(self.c, gas)
+
+    def _zeros(self):
+        return torch.zeros(self.jp.shape + (self.ng,), dtype=torch.float32,
+                           device=self.jp.device)
 
     def rat(self, gas1, gas2, plus1):
         j = self.jp + (0 if plus1 else -1)
@@ -224,18 +251,26 @@ class _Band:
         return i0, i1
 
     def tauself(self):
+        if "cont" not in self.parts:
+            return self._zeros()
         return self.c.selffac[..., None] * _interp_ind(
             self.self10, self.c.indself.long(), self.c.selffrac)
 
     def taufor(self):
+        if "cont" not in self.parts:
+            return self._zeros()
         return self.c.forfac[..., None] * _interp_ind(
             self.for4, self.c.indfor.long(), self.c.forfrac)
 
     def minor(self, key):
+        if "minor" not in self.parts:
+            return self._zeros()
         return _interp_ind(self.tab(key), self.c.indminor.long(),
                            self.c.minorfrac)
 
     def eta_minor(self, key, gas1, gas2, level, mult):
+        if "minor" not in self.parts:
+            return self._zeros()
         _, _, jm, fm = _spec(self.col(gas1), self.col(gas2),
                              self.refrat(gas1, gas2, level), mult)
         return _interp_eta_minor(self.tab(key), jm, fm,
@@ -254,7 +289,16 @@ class _Band:
         adj = adjfac * ref * coldry * 1.0e-20
         return torch.where(ratg > thresh, adj, colgas)
 
+    def halo(self, key):
+        """A halocarbon cross-section row (ccl4, cfc11adj, cfc12,
+        cfc22adj), part of "minor"."""
+        if "minor" not in self.parts:
+            return torch.zeros_like(self.tab(key))
+        return self.tab(key)
+
     def major1(self, key, colgas, i0, i1):
+        if "major" not in self.parts:
+            return self._zeros()
         tab = self.tab(key)
         c = self.c
         return colgas[..., None] * (
@@ -265,6 +309,8 @@ class _Band:
 
     def major2(self, gas1, gas2):
         """Lower 2-species key tau at (jp, jt) and (jp+1, jt1)."""
+        if "major" not in self.parts:
+            return self._zeros()
         c = self.c
         nspa = NSPA[self.band - 1]
         i0, i1 = self.ind_lower(nspa)
@@ -279,6 +325,8 @@ class _Band:
         return out
 
     def major2_upper(self, gas1, gas2):
+        if "major" not in self.parts:
+            return self._zeros()
         c = self.c
         nspb = NSPB[self.band - 1]
         u0, u1 = self.ind_upper(nspb)
@@ -293,10 +341,15 @@ class _Band:
         return out
 
     def planck(self, key, gas1, gas2, level, mult):
+        if "planck" not in self.parts:
+            return self._zeros()
         return _planck_eta(self.tab(key), self.col(gas1), self.col(gas2),
                            self.refrat(gas1, gas2, level), mult)
 
     def const(self, key, like):
+        """A fracref row (Planck fractions) broadcast like `like`."""
+        if "planck" not in self.parts:
+            return torch.zeros_like(like)
         return self.tab(key).expand_as(like)
 
 
@@ -342,7 +395,7 @@ def _band_terms(b):
         return tlo, plo, thi, phi
 
     if n == 5:
-        ccl4 = c.colccl4[..., None] * b.tab("ccl4")
+        ccl4 = c.colccl4[..., None] * b.halo("ccl4")
         tlo = b.major2("h2o", "co2") + b.tauself() + b.taufor() \
             + c.colo3[..., None] * b.eta_minor("ka_mo3", "h2o", "co2", 7,
                                                8.0) \
@@ -355,8 +408,8 @@ def _band_terms(b):
     if n == 6:
         i0, i1 = b.ind_lower(1)
         adjco2 = b.adjcol("co2", 3.0, 2.0, 0.77)[..., None]
-        cfc = c.colcfc11[..., None] * b.tab("cfc11adj") \
-            + c.colcfc12[..., None] * b.tab("cfc12")
+        cfc = c.colcfc11[..., None] * b.halo("cfc11adj") \
+            + c.colcfc12[..., None] * b.halo("cfc12")
         tlo = b.major1("absa", c.colh2o, i0, i1) + b.tauself() \
             + b.taufor() + adjco2 * b.minor("ka_mco2") + cfc
         plo = b.const("fracrefa", tlo)
@@ -380,14 +433,14 @@ def _band_terms(b):
             + b.taufor() + adjco2 * b.minor("ka_mco2") \
             + c.colo3[..., None] * b.minor("ka_mo3") \
             + c.coln2o[..., None] * b.minor("ka_mn2o") \
-            + c.colcfc12[..., None] * b.tab("cfc12") \
-            + c.colcfc22[..., None] * b.tab("cfc22adj")
+            + c.colcfc12[..., None] * b.halo("cfc12") \
+            + c.colcfc22[..., None] * b.halo("cfc22adj")
         u0, u1 = b.ind_upper(1)
         thi = b.major1("absb", c.colo3, u0, u1) \
             + adjco2 * b.minor("kb_mco2") \
             + c.coln2o[..., None] * b.minor("kb_mn2o") \
-            + c.colcfc12[..., None] * b.tab("cfc12") \
-            + c.colcfc22[..., None] * b.tab("cfc22adj")
+            + c.colcfc12[..., None] * b.halo("cfc12") \
+            + c.colcfc22[..., None] * b.halo("cfc22adj")
         return tlo, b.const("fracrefa", tlo), thi, b.const("fracrefb", thi)
 
     if n == 9:
@@ -449,11 +502,11 @@ def _band_terms(b):
     return tlo, plo, thi, b.const("fracrefb", thi)
 
 
-def _taumol_cells(coefs, tabs, taua):
+def _taumol_cells(coefs, tabs, taua, parts):
     low = coefs.lower[..., None]
     taug, pfracs = [], []
     for band in range(1, 17):
-        tlo, plo, thi, phi = _band_terms(_Band(coefs, tabs, band))
+        tlo, plo, thi, phi = _band_terms(_Band(coefs, tabs, band, parts))
         taug.append(torch.where(low, tlo, thi))
         pfracs.append(torch.where(low, plo, phi))
     taug = torch.cat(taug, dim=-1)
@@ -465,12 +518,13 @@ def _taumol_cells(coefs, tabs, taua):
     return taug, pfracs
 
 
-def taumol_lw(coefs, tabs, taua=None, cell_chunk=65536):
+def taumol_lw(coefs, tabs, taua=None, cell_chunk=65536, parts=PARTS):
     """Gas optical depth and Planck fractions for all 140 g-points.
 
     coefs: LWCoefs of [ncol, nlay] fields; tabs: TaumolTables;
     taua: optional [ncol, nlay, 16] aerosol optical depth per band.
-    Cells run in chunks of cell_chunk to bound the temporaries.
+    Cells run in chunks of cell_chunk to bound the temporaries. parts:
+    the subset of PARTS computed (the others contribute zeros).
     Returns (taug, pfracs): [ncol, nlay, 140].
     """
     shape = coefs.jp.shape
@@ -480,7 +534,7 @@ def taumol_lw(coefs, tabs, taua=None, cell_chunk=65536):
     for s in range(0, n, cell_chunk):
         sl = slice(s, min(s + cell_chunk, n))
         a, b = _taumol_cells(_cells(coefs, shape, sl), tabs,
-                             None if ta is None else ta[sl])
+                             None if ta is None else ta[sl], parts)
         tg.append(a)
         pf.append(b)
     return (torch.cat(tg).reshape(shape + (-1,)),

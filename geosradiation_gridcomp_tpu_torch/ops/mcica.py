@@ -84,9 +84,9 @@ def _sigma_class(cldfrac):
             + (cldfrac <= 0.9).to(torch.int32))
 
 
-def zcw_class_columns(inhm):
-    """(3, 1000) float32 xcw columns for the 3 sigma_qcw classes, blended
-    in float64 then cast, exactly as the oracle builds its class table
+def class_columns(inhm):
+    """(3, 1000) float64 xcw columns for the 3 sigma_qcw classes
+    {0.5, 0.71, 1.0}, blended in sigma as the oracle blends them
     (geosradiation_gridcomp_tpu/ops/mcica.py:148-157)."""
     tab = np.asarray(load("chou_xcw_inhomogeneity")[
         "xcw_beta" if inhm == 1 else "xcw_gamma"], np.float64)
@@ -97,7 +97,12 @@ def zcw_class_columns(inhm):
         j = int(min(max(int(r2), 1), n2 - 1))
         f2 = r2 - j
         cols.append((1.0 - f2) * tab[:, j - 1] + f2 * tab[:, j])
-    return np.stack(cols, 0).astype(np.float32)
+    return np.stack(cols, 0)
+
+
+def zcw_class_columns(inhm):
+    """The class columns cast to float32: the oracle's class table."""
+    return class_columns(inhm).astype(np.float32)
 
 
 def zcw_lookup_class(cdf, sigcls, zcw_cols):
@@ -127,6 +132,37 @@ def _correlate(cdf, keepmask):
     return out
 
 
+def _draws(keys, alpha, rcorr, cldfrac, nsubcol, condensate):
+    """The generator's raw draws, [ncol, nsubcol, nlay]: the presence test
+    of the forward-filled presence cdf (bool) and, when condensate, the
+    forward-filled condensate cdf (else None)."""
+    shape = (nsubcol, cldfrac.shape[1])
+    cdf1 = threefry.uniform(keys[:, 0], shape)
+    cdf2 = threefry.uniform(keys[:, 1], shape)
+    cdf1 = _correlate(cdf1, cdf2 >= alpha[:, None, :])
+    cloudy = cdf1 >= 1.0 - cldfrac[:, None, :]
+    if not condensate:
+        return cloudy, None
+    cdf2b = threefry.uniform(keys[:, 2], shape)
+    cdf3 = threefry.uniform(keys[:, 3], shape)
+    return cloudy, _correlate(cdf3, cdf2b >= rcorr[:, None, :])
+
+
+def subcolumns_raw(keys, alpha, rcorr, cldfrac, nsubcol):
+    """The raw draws behind subcolumns (plain twin of kernel K7): the
+    presence mask before the water-path test and the forward-filled
+    condensate cdf the zcw scaling is evaluated at, from the same threefry
+    uniforms as subcolumns.
+
+    keys [ncol, 4, 2] from subcolumn_keys; alpha, rcorr, cldfrac
+    [ncol, nlay]. Returns (cloudy, v3), each [ncol, nlay, nsubcol] float32
+    (cloudy 0/1), the layout of the reference's mcica_subcols_raw.
+    """
+    cloudy, cdf3 = _draws(keys, alpha, rcorr, cldfrac, nsubcol, True)
+    return (cloudy.to(cdf3.dtype).transpose(1, 2).contiguous(),
+            cdf3.transpose(1, 2).contiguous())
+
+
 def subcolumns(keys, alpha, rcorr, cldfrac, ciwp, clwp, sigcls, zcw_cols,
                cwp_tiny, nsubcol, inhm=1):
     """Subcolumn cloud mask and water paths from precomputed per-column
@@ -137,20 +173,13 @@ def subcolumns(keys, alpha, rcorr, cldfrac, ciwp, clwp, sigcls, zcw_cols,
     clwp: [ncol, nlay]; sigcls [ncol, nlay] int; zcw_cols (3, 1000).
     Returns cldy [ncol, nsubcol, nlay] bool and the two water paths.
     """
-    shape = (nsubcol, cldfrac.shape[1])
-    cdf1 = threefry.uniform(keys[:, 0], shape)
-    cdf2 = threefry.uniform(keys[:, 1], shape)
-    cdf1 = _correlate(cdf1, cdf2 >= alpha[:, None, :])
-    cloudy = cdf1 >= 1.0 - cldfrac[:, None, :]
+    cloudy, cdf3 = _draws(keys, alpha, rcorr, cldfrac, nsubcol, inhm != 0)
     if inhm != 0:
-        cdf2b = threefry.uniform(keys[:, 2], shape)
-        cdf3 = threefry.uniform(keys[:, 3], shape)
-        cdf3 = _correlate(cdf3, cdf2b >= rcorr[:, None, :])
         zcw = zcw_lookup_class(cdf3, sigcls[:, None, :].expand_as(cdf3),
                                zcw_cols)
     else:
-        zcw = torch.ones_like(cdf1)
-    zero = torch.zeros((), dtype=cdf1.dtype, device=cdf1.device)
+        zcw = torch.ones(cloudy.shape, dtype=ciwp.dtype, device=ciwp.device)
+    zero = torch.zeros((), dtype=zcw.dtype, device=zcw.device)
     ciwp_s = torch.where(cloudy, ciwp[:, None, :] * zcw, zero)
     clwp_s = torch.where(cloudy, clwp[:, None, :] * zcw, zero)
     ciwp_s = torch.where(ciwp_s <= cwp_tiny, zero, ciwp_s)

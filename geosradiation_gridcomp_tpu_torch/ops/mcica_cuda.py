@@ -1,14 +1,16 @@
-"""Fused McICA + cloud optics: kernels K1 (LW) and K2 (SW) and their
-plain twins.
+"""Fused McICA + cloud optics: kernels K1 (LW) and K2 (SW), the raw draws
+of kernel K7, and their plain twins.
 
-Replace the TPU kernels geosradiation_gridcomp_tpu/ops/mcica_pallas.py:
-mcica_optics_lw_fused and mcica_optics_sw_fused. Each computes what the
-CPU oracle computes (generate_stochastic_clouds + clear_counts_three_band
-+ cldprmc_lw or cldprmc_sw): per (column, g-point, layer) the four
-threefry uniforms, the two overlap forward fills, the zcw condensate
-scaling from the exact class table, then the band->g cloud optics, and
-the four clear subcolumn counts. The CUDA sources are csrc/mcica_lw.cu
-and csrc/mcica_sw.cu; both include the generator of csrc/mcica_gen.cuh.
+K1 and K2 replace the TPU kernels geosradiation_gridcomp_tpu/ops/
+mcica_pallas.py:mcica_optics_lw_fused and mcica_optics_sw_fused. Each
+computes what the CPU oracle computes (generate_stochastic_clouds +
+clear_counts_three_band + cldprmc_lw or cldprmc_sw): per (column,
+g-point, layer) the four threefry uniforms, the two overlap forward
+fills, the zcw condensate scaling from the exact class table, then the
+band->g cloud optics, and the four clear subcolumn counts. K7 replaces
+mcica_pallas.py:mcica_subcols_raw, the verification suite's raw draws.
+The CUDA sources are csrc/mcica_lw.cu, csrc/mcica_sw.cu and
+csrc/mcica_raw.cu; all three include the generator of csrc/mcica_gen.cuh.
 """
 
 import torch
@@ -16,7 +18,8 @@ import torch
 from ..kernels import build
 from ..models.rrtmg.cldprmc_lw import cldprmc_from_band_coeffs
 from ..models.rrtmg.cldprmc_sw import cldprmc_from_band_coeffs_sw
-from .mcica import clear_counts_three_band, column_blocks, subcolumns
+from .mcica import (clear_counts_three_band, column_blocks, subcolumns,
+                    subcolumns_raw)
 
 NGPTLW = 140
 NGPTSW = 112
@@ -114,6 +117,50 @@ def mcica_optics_lw(keys, alpha, rcorr, cldf, ciwp, clwp, sigcls, absice,
              (*cldf.shape, 16), zcw_cols)
     out = launch(build.library(), *ins, cloud_mh, cloud_lm, inhm, cwp_tiny)
     build.LAUNCHES["mcica_optics_lw"] += 1
+    return out
+
+
+def mcica_subcols_raw_plain(keys, alpha, rcorr, cldf, *, nsub,
+                            col_block=1024):
+    """Plain PyTorch twin of K7: ops.mcica.subcolumns_raw in column
+    blocks. Returns (cloudy, v3), each [ncol, nlay, nsub] float32."""
+    parts = [subcolumns_raw(keys[s], alpha[s], rcorr[s], cldf[s], nsub)
+             for s in column_blocks(cldf.shape[0], col_block)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def launch_raw(lib, keys, alpha, rcorr, cldf, nsub):
+    """Allocate the outputs and launch K7 from lib; returns them."""
+    ncol, nlay = cldf.shape
+    outs = tuple(torch.empty((ncol, nlay, nsub), dtype=torch.float32,
+                             device=cldf.device) for _ in range(2))
+    k32 = _keys_u32(keys)    # held until the launch has read it
+    fn = build.entry(lib, "mcica_subcols_raw", 6, 3)
+    rc = fn(k32.data_ptr(), alpha.data_ptr(), rcorr.data_ptr(),
+            cldf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), ncol,
+            nlay, nsub, build.stream_of(cldf))
+    build.check(rc, "mcica_subcols_raw")
+    return outs
+
+
+def mcica_subcols_raw(keys, alpha, rcorr, cldf, *, nsub):
+    """K7: the raw subcolumn draws of the McICA generator (the presence
+    mask and the forward-filled condensate cdf), as K1 and K2 draw them.
+
+    keys [ncol, 4, 2] int64 (ops.mcica.subcolumn_keys); alpha, rcorr,
+    cldf [ncol, nlay] f32. CPU tensors take the plain twin; CUDA tensors
+    launch the kernel. Returns (cloudy, v3), each [ncol, nlay, nsub] f32.
+    """
+    if cldf.device.type == "cpu":
+        return mcica_subcols_raw_plain(keys, alpha, rcorr, cldf, nsub=nsub)
+    build.require_cuda("mcica_subcols_raw", keys, alpha, rcorr, cldf)
+    if any(t.dtype != torch.float32 for t in (alpha, rcorr, cldf)):
+        raise TypeError("mcica_subcols_raw: float inputs must be float32")
+    if keys.shape != (cldf.shape[0], 4, 2) or alpha.shape != cldf.shape \
+            or rcorr.shape != cldf.shape or nsub <= 0:
+        raise ValueError("mcica_subcols_raw: bad keys/field shape or nsub")
+    out = launch_raw(build.library(), keys, alpha, rcorr, cldf, nsub)
+    build.LAUNCHES["mcica_subcols_raw"] += 1
     return out
 
 

@@ -8,7 +8,8 @@
 // the two source forms below before compiling):
 //  * dynamic shared memory is declared exactly as
 //    `extern __shared__ __align__(16) unsigned char dyn_smem[];`
-//  * launches are written `kernel<<<grid, block, smem, stream>>>(args)`;
+//  * launches are written `kernel<<<grid, block, smem, stream>>>(args)`
+//    (or `kernel<P><<<...>>>(args)` for one template argument);
 //  * every thread of a block reaches every __syncthreads and every thread
 //    of a warp reaches every shuffle.
 #pragma once
@@ -65,6 +66,8 @@ inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
     return static_cast<uint32_t>((v << (s & 31)) >> 32);
 }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

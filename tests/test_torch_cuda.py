@@ -10,7 +10,9 @@ Tolerances (relmax = max|a-b| / max|b|): K1 and K2 masks and counts
 exact, cloud optics <= 1e-5; K3 and K5 (per band), K4 and K6 <= 5e-4 (the
 reference's kernel-parity gate, tools/verify_tpu.py:115-128); the LW
 refresh <= 5e-5 (the LW end-to-end gate); the SW state of the combined
-step <= 5e-4 (the SW end-to-end gate, tools/verify_tpu.py:279-281).
+step <= 5e-4 (the SW end-to-end gate, tools/verify_tpu.py:279-281). K7,
+P1 and both P2 kernels exact; P3's full variant equal to K3 bit for bit,
+every variant <= 5e-4 per band (K3's gate).
 """
 
 import pytest
@@ -37,17 +39,20 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc_cuda import \
     spcvmc_fast
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
-    NGS_LW, taumol_lw)
-from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import \
-    taumol_lw_fast
+    NGS_LW, PARTS, VARIANTS, taumol_lw)
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import (
+    taumol_lw_bisect, taumol_lw_fast)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
     NGS_SW, taumol_sw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw_cuda import \
     taumol_sw_fast
 from geosradiation_gridcomp_tpu_torch.ops import mcica
+from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
+from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
+    gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
 from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
     mcica_optics_lw, mcica_optics_lw_plain, mcica_optics_sw,
-    mcica_optics_sw_plain)
+    mcica_optics_sw_plain, mcica_subcols_raw, mcica_subcols_raw_plain)
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
 pytestmark = pytest.mark.gpu
@@ -226,3 +231,49 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     with pytest.raises(ValueError):
         mcica_optics_sw(*case["k2"][:-1], case["k2"][-1][:6],
                         case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+
+
+def test_k7_equals_plain(case):
+    args = case["k1"][:4]
+    a = mcica_subcols_raw(*args, nsub=140)
+    b = mcica_subcols_raw_plain(*args, nsub=140)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_p1_equals_plain(dev):
+    gen = torch.Generator(dev).manual_seed(5)
+    v = torch.rand(16, 72, 140, device=dev, generator=gen)
+    keep = (torch.rand(16, 72, 140, device=dev, generator=gen) > 0.6).float()
+    assert torch.equal(ffill(v, keep), ffill_plain(v, keep))
+
+
+def test_p2_equals_plain(dev):
+    gen = torch.Generator(dev).manual_seed(6)
+    tab = torch.randn(585, 16, device=dev, generator=gen)
+    idx = torch.randint(0, 585, (8192,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    assert torch.equal(gather_rows(idx, tab), gather_rows_plain(idx, tab))
+    tabt = torch.nn.functional.pad(tab.T, (0, 640 - 585)).contiguous()
+    idx2d = idx.reshape(64, 128)
+    assert torch.equal(gather_lanes(idx2d, tabt),
+                       gather_lanes_plain(idx2d, tabt))
+
+
+def test_p3_full_equals_k3(case):
+    tabs = case["lw"].taumol_tables
+    for x, y in zip(taumol_lw_bisect(case["coefs"], tabs, PARTS),
+                    taumol_lw_fast(case["coefs"], tabs)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_p3_matches_plain(case, variant):
+    parts = VARIANTS[variant]
+    tabs = case["lw"].taumol_tables
+    a = taumol_lw_bisect(case["coefs"], tabs, parts)
+    b = taumol_lw(case["coefs"], tabs, parts=parts)
+    for x, y in zip(a, b):
+        for i in range(16):
+            sl = slice(NGS_LW[i], NGS_LW[i + 1])
+            assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 1

@@ -1,5 +1,5 @@
-"""The CUDA sources of K1-K6 run on the CPU against their plain PyTorch
-twins.
+"""The CUDA sources of K1-K7 and P1-P3 run on the CPU against their plain
+PyTorch twins.
 
 g++ compiles geosradiation_gridcomp_tpu_torch/csrc/*.cu against a host
 emulation of the CUDA subset they use (tests/cuda_emu.h: one std::thread
@@ -15,7 +15,9 @@ builds with -ffp-contract=off and the same operation order; libm's
 expf/powf may differ from torch's by an ulp). K6 relmax <= 1e-5: an ulp
 of expf is amplified through the 72-layer adding sweeps and the
 resonance-factored reflectances, and both float32 paths lie up to 7e-6
-from a float64 evaluation of the plain twin on this scene.
+from a float64 evaluation of the plain twin on this scene. K7, P1 and both P2
+kernels exact; P3's full variant equal to K3 bit for bit, and every
+variant elementwise within 1e-6 relative of its twin (K3's gate).
 """
 
 import ctypes
@@ -47,9 +49,11 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
     setcoef_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
-from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import taumol_lw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
+    PARTS, VARIANTS, taumol_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import taumol_sw
-from geosradiation_gridcomp_tpu_torch.ops import mcica, mcica_cuda
+from geosradiation_gridcomp_tpu_torch.ops import (ffill_cuda, gather_cuda,
+                                                  mcica, mcica_cuda)
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
 torch.set_num_threads(1)
@@ -76,8 +80,8 @@ def lib(tmp_path_factory):
         text = open(src).read().replace(
             "extern __shared__ __align__(16) unsigned char dyn_smem[];",
             "unsigned char* dyn_smem = emu_dyn_smem;")
-        text = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2)(", text,
-                      flags=re.S)
+        text = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(",
+                      r"emu_launch(\1, \2)(", text, flags=re.S)
         (out / os.path.basename(src)).write_text(text)
     so = out / "libemu.so"
     cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
@@ -217,3 +221,55 @@ def test_k6_emulated_matches_plain(lib, sw_case, aerosol, ncld):
     assert set(a) == set(b)
     for k in b:
         assert relmax(a[k], b[k]) <= 1e-5, k
+
+
+def test_k7_emulated_equals_plain(lib, case):
+    keys, alpha, rcorr, cldf = case["k1"][:4]
+    a = mcica_cuda.launch_raw(lib, keys, alpha, rcorr, cldf, 140)
+    b = mcica_cuda.mcica_subcols_raw_plain(keys, alpha, rcorr, cldf, nsub=140)
+    assert 0 < int(b[0].sum()) and float(b[1].std()) > 0.1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_p1_emulated_equals_plain(lib):
+    rng = np.random.default_rng(7)
+    v = torch.as_tensor(rng.random((3, 9, 140)).astype(np.float32))
+    keep = torch.as_tensor((rng.random((3, 9, 140)) > 0.6).astype(np.float32))
+    assert torch.equal(ffill_cuda.launch(lib, v, keep),
+                       ffill_cuda.ffill_plain(v, keep))
+
+
+@pytest.mark.parametrize("kind", ["rows", "lanes"])
+def test_p2_emulated_equals_plain(lib, kind):
+    rng = np.random.default_rng(8)
+    tab = torch.as_tensor(rng.standard_normal((585, 16)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, 585, 64 * 128).astype(np.int32))
+    if kind == "rows":
+        a = gather_cuda.launch_rows(lib, idx, tab)
+        b = gather_cuda.gather_rows_plain(idx, tab)
+    else:
+        tabt = torch.nn.functional.pad(tab.T, (0, 640 - 585)).contiguous()
+        a = gather_cuda.launch_lanes(lib, idx.reshape(64, 128), tabt)
+        b = gather_cuda.gather_lanes_plain(idx.reshape(64, 128), tabt)
+    assert torch.equal(a, b)
+
+
+def test_p3_full_emulated_equals_k3(lib, case):
+    tabs = case["lw"].taumol_tables
+    a = taumol_lw_cuda.launch_bisect(lib, case["coefs"], tabs, PARTS)
+    b = taumol_lw_cuda.launch(lib, case["coefs"], tabs)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_p3_emulated_matches_plain(lib, case, variant):
+    parts = VARIANTS[variant]
+    tabs = case["lw"].taumol_tables
+    a = taumol_lw_cuda.launch_bisect(lib, case["coefs"], tabs, parts)
+    b = taumol_lw(case["coefs"], tabs, parts=parts)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
+    if "planck" not in parts:
+        assert not bool(a[1].any())
