@@ -9,26 +9,34 @@ McICA draws, P1 forward fill, P2 table gathers, P3 taumol-LW bisection)
 from geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, one
 nvcc per source side by side, then:
 
-1. kernel phases at 1024 columns x 72 levels: each kernel against its
-   plain PyTorch twin on the same inputs on the card (K1, K2: cloudy masks
-   and clear counts identical, cloud optics relmax <= 1e-5; K3, K5 relmax
-   <= 5e-4 in every band; K4, K6 relmax <= 5e-4 for every output), with
-   both times;
-2. step phase at 8192 columns x 72 levels (the reference benchmark's
+1. step phase at 8192 columns x 72 levels (the reference benchmark's
    workload, bench.py:190-228): radiation_refresh + radiation_update
    through their entry points on the realistic multi-deck scene, doy 172,
    12 UTC, with sw_partition_bounds daylight packing; every kernel K1-K6
-   must launch; every IrradState field and LW export must agree with the
-   plain path on the same card to relmax <= 5e-5, every SolarState field
-   and SW export to relmax <= 5e-4 with at most 0.5 % of columns beyond
-   5e-5 (tools/verify_tpu.py:279-281); fluxes must be physical; the wall
-   time of the refresh with the kernels and with the plain twins;
-3. kernel phases of the verification and profiling kernels, each against
-   its plain twin on the same inputs, with both times: K7 at 1024 x 72
-   and P1 on [1024, 72, 140] exactly equal; P2's gather_rows and
-   gather_lanes at the profiling tool's 8192 x 72 points exactly equal;
-   P3's full variant equal to K3 bit for bit and every variant within
-   relmax 5e-4 of its twin in every band, at 1024 x 72;
+   must launch, and the first call of each one's wrapper is recorded;
+   every IrradState field and LW export must agree with the plain path on
+   the same card to relmax <= 5e-5, every SolarState field and SW export
+   to relmax <= 5e-4 with at most 0.5 % of columns beyond 5e-5
+   (tools/verify_tpu.py:279-281); fluxes must be physical; the wall time
+   of the refresh with the kernels and with the plain twins;
+2. kernel phases of K1-K6 at the main path's shapes, on the inputs the
+   refresh gave them: each kernel against its plain PyTorch twin on the
+   same inputs on the card (K1, K2: cloudy masks and clear counts
+   identical, cloud optics relmax <= 1e-5; K3, K5 relmax <= 5e-4 in every
+   band, K3 also with an aerosol depth; K4 relmax <= 5e-4 for every
+   output; K6 likewise, also with aerosol and with ncld 512, and equal to
+   itself over two runs), with both times (CUDA events) and the kernel's
+   bound: bytes over the memory rate, or the work, whichever is larger;
+   the work is operations over the FP32 peak, and for the threefry draws
+   of K1, K2 and K7 the SASS instructions of one draw as nvcc compiles it
+   in this run, over the rates of the SM's pipes;
+3. kernel phases of the verification and profiling kernels at the sizes
+   their paths give them, each against its plain twin on the same inputs,
+   with both times and the bound: K7 at 512 x 72 and P1 on [1024, 72, 140]
+   exactly equal; P2's gather_rows and gather_lanes at the profiling
+   tool's 8192 x 72 points exactly equal, gather_rows beside the library
+   call tab[idx]; P3's full variant equal to K3 bit for bit and every
+   variant within relmax 5e-4 of its twin in every band, at 1024 x 72;
 4. verify path: the verification suite's entry point
    (tools/verify.py --quick, 512 x 72), every gate passing; K7 must
    launch there;
@@ -36,6 +44,9 @@ nvcc per source side by side, then:
    at 1024 columns, gather_micro at its default size, taumol_lw_bisect
    at 1024 x 72), each raising on a failed check; P1, both P2 kernels and
    P3 must launch there.
+
+Then it checks that neither jax nor any module of the reference package
+geosradiation_gridcomp_tpu was loaded.
 
     python3 chip_smoke.py --profile
 
@@ -47,7 +58,8 @@ and the solar_refresh, irrad_refresh and subcolumn_keys stages alone
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
-profiling), error and times, and as its last line
+profiling; launches_per_refresh for the step kernels), error, times,
+bound and library time, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
 """
@@ -60,6 +72,7 @@ import sys
 import time
 
 NCOL_KERNEL = 1024
+NCOL_VERIFY = 512
 NCOL_SLICE = 8192
 NLEV = 72
 SEED = 0
@@ -112,188 +125,228 @@ def time_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
-def kernel_phases(torch, dev):
-    """Each kernel against its plain twin at NCOL_KERNEL x NLEV."""
-    from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
-        band_abs_coeffs_lw
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# device memory, and FP32 outside the tensor cores with an FMA counted as
+# two operations.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Thread-instructions each pipe of an SM completes per clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0): 128 FP32 add, multiply or FMA; 64 of the 32-bit integer add, logic,
+# shift and compare (alu); 64 integer multiply-add (IMAD, on the heavy half
+# of the FMA pipe, beside the alu's); 16 MUFU. Each of the 4 sub-partitions
+# issues one warp instruction per clock: 128 in all. The SM-clocks per
+# second (132 SMs at the boost clock) follow from the FP32 peak, 128 FMA
+# per SM-clock.
+SM_CLOCKS_PER_S = FP32_OPS_PER_S / (2 * 128)
+PIPES = {"alu": (("alu",), 64), "fmaheavy": (("imad",), 64),
+         "fma": (("fp32", "imad"), 128), "mufu": (("mufu",), 16)}
+DISPATCH_PER_CLOCK = 128
+# operations per unit of work, read off the kernels' sources (an exp, a
+# division or a square root counted as one operation); the threefry draws
+# of K1, K2 and K7 are counted in SASS instructions instead, compiled by
+# kernel_resources.threefry_counts in this run
+MCICA_INSNS = 10       # fp32 zcw lookup and cloud optics per (cell,
+#                        subcolumn)
+TAUMOL_LW_OPS = 40     # per (cell, g-point): ~12 table terms, weights, sums
+TAUMOL_SW_OPS = 30     # per (cell, g-point)
+RTRNMC_OPS = 60        # per (cell, g-point): both sweeps, exp, Planck terms
+SPCVMC_OPS = 130       # per (cell, g-point, stream): optics, one reftra
+#                        (~90), both adding steps and the level fluxes
+
+
+def issue_seconds(counts, n):
+    """Least time (s) for the SMs to run n times the thread-instructions
+    of counts (kernel_resources.PIPE_CLASSES -> count): the busiest pipe's
+    time or the time to issue them all, whichever is longer."""
+    clocks = max([sum(counts.get(c, 0) for c in cls) / rate
+                  for cls, rate in PIPES.values()]
+                 + [sum(counts.values()) / DISPATCH_PER_CLOCK])
+    return n * clocks / SM_CLOCKS_PER_S
+
+
+def nbytes(*xs):
+    """Bytes of every tensor in xs (tuples, lists and dicts searched)."""
+    total = 0
+    for x in xs:
+        if hasattr(x, "element_size"):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+    return total
+
+
+def bound(nbytes_, fp_ops=0.0, seconds=0.0):
+    """The least time (ms) the card needs to move nbytes_ (each input read
+    once, each output written once) or do the work (fp_ops operations at
+    the FP32 peak, or `seconds` of instruction issue), whichever is larger,
+    and which of the two it is."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S
+    t_ops = max(fp_ops / FP32_OPS_PER_S, seconds)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def draw_counts(draw, draws, extra=None):
+    """Thread-instructions of `draws` threefry draws (draw: one draw's, by
+    class) and the extra ones, by class."""
+    out = {c: draws * n for c, n in draw.items()}
+    for c, n in (extra or {}).items():
+        out[c] = out.get(c, 0) + n
+    return out
+
+
+def mcica_bound(args, kw, out, ng, draw):
+    """K1, K2: the draws of the columns with cloud (the kernel skips the
+    others) and the inputs and outputs."""
+    cldf = args[3]
+    ncloudy = int((cldf > 0.0).any(dim=1).sum())
+    draws = 2 + (2 if kw.get("inhm", 1) != 0 else 0)
+    cells = ncloudy * cldf.shape[1] * ng
+    return bound(nbytes(args, out), seconds=issue_seconds(
+        draw_counts(draw, draws, {"fp32": MCICA_INSNS}), cells))
+
+
+def taumol_bound(coefs, fields, tabs, ng, ops, out, taua=None):
+    """K3, K5, P3: the per-cell planes the kernel reads, the tables, the
+    outputs."""
+    ncells = coefs.jp.numel()
+    return bound(ncells * 4 * len(fields) + nbytes(tabs.pack, taua, out),
+                 fp_ops=ncells * ng * ops)
+
+
+def spcvmc_bound(args, kw, out):
+    """K6: the clear stream on every column, the all-sky one on the first
+    ncld; cloud optics read where the all-sky stream sees cloud."""
+    (_, taug, taur, sfluxzen, mu0, albdir, albdif, cldymc, taucmc, _,
+     _) = args
+    ncol, nlay, ng = taug.shape
+    ncld = ncol if kw.get("ncld") is None else min(kw["ncld"], ncol)
+    ncloudy = int(cldymc[:ncld].sum())
+    aero = [kw.get(k) for k in ("taua", "ssaa", "asya")]
+    moved = (nbytes(taug, taur, sfluxzen, mu0, albdir, albdif, aero, out)
+             + cldymc[:ncld].numel() + 3 * 4 * ncloudy)
+    return bound(moved, fp_ops=(ncol + ncld) * nlay * ng * SPCVMC_OPS)
+
+
+def step_kernel_phases(torch, dev, calls, draw):
+    """Each step kernel (K1-K6) on the inputs the full-width refresh gave
+    it, against its plain twin on the same inputs, with both times and
+    its bound; draw: one threefry draw's instructions by class."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import (
+        taumol_lw_cuda, taumol_sw_cuda)
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc_cuda import \
-        rtrnmc_fast
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
-        setcoef_lw
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import \
+        spcvmc_sw
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
         NGS_LW, taumol_lw)
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import \
-        taumol_lw_fast
-    from geosradiation_gridcomp_tpu_torch.ops import mcica
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
+        NGS_SW, taumol_sw)
     from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
-        mcica_optics_lw, mcica_optics_lw_plain)
-    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+        mcica_optics_lw_plain, mcica_optics_sw_plain)
 
-    ncol = NCOL_KERNEL
-    inp = example_inputs(ncol, NLEV, seed=SEED, device=dev)
-    lw = lwm.RRTMGLW.from_reference_tables(dev)
-    play, h2o, o3 = rad._common_derived(inp)
-    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
-    ciwp, clwp = rad._incloud_paths(inp)
-    alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
-    absi, absl = band_abs_coeffs_lw(inp.ri, inp.rl, lw.cloud_tables)
-    k1_args = (mcica.subcolumn_keys(play), alpha, rcorr, inp.fcld, ciwp,
-               clwp, mcica._sigma_class(inp.fcld), absi.contiguous(),
-               absl.contiguous(), lw.zcw_cols(1))
-    k1_kw = dict(cloud_mh=28, cloud_lm=47, inhm=1)
     results = {}
 
-    print(f"K1 mcica_optics_lw at {ncol} x {NLEV}:")
-    tau_k, cld_k, cnt_k = mcica_optics_lw(*k1_args, **k1_kw)
-    tau_p, cld_p, cnt_p = mcica_optics_lw_plain(*k1_args, **k1_kw)
-    torch.cuda.synchronize()
-    gate("cloudy mask mismatches", float((cld_k != cld_p).sum()), 0)
-    gate("clear count mismatches", float((cnt_k != cnt_p).sum()), 0)
-    gate("taucmc relmax", relmax(tau_k, tau_p), 1e-5)
-    results["mcica_optics_lw"] = dict(
-        max_abs_err=max_abs(tau_k, tau_p),
-        ms=time_ms(torch, lambda: mcica_optics_lw(*k1_args, **k1_kw), 20),
-        plain_ms=time_ms(torch, lambda: mcica_optics_lw_plain(
-            *k1_args, **k1_kw), 3))
+    def timed(name, fn, plain, args, kw, err, bnd):
+        results[name] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: fn(*args, **kw), 20),
+            plain_ms=time_ms(torch, lambda: plain(*args, **kw), 3),
+            bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        print(f"  {results[name]['ms']:.4f} ms (plain "
+              f"{results[name]['plain_ms']:.2f} ms), bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]}")
 
-    tlev = lwm.level_temperatures(play, inp.t, inp.ple * 0.01, inp.tsinst)
-    emis = inp.emis[:, None].expand(ncol, 16).contiguous()
-    z = torch.zeros_like(inp.co2)
-    coefs = setcoef_lw(play, inp.t, inp.ple * 0.01, tlev, inp.tsinst, emis,
-                       h2o, o3, inp.co2, inp.ch4, inp.n2o,
-                       torch.full_like(z, 0.2095), z, inp.cfc11, inp.cfc12,
-                       inp.hcfc22, z, lw.planck_tables)
-    tabs = lw.taumol_tables
-    print(f"K3 taumol_lw at {ncol} x {NLEV}:")
-    tg_k, pf_k = taumol_lw_fast(coefs, tabs)
-    tg_p, pf_p = taumol_lw(coefs, tabs)
+    for name, plain, ng in (("mcica_optics_lw", mcica_optics_lw_plain, 140),
+                            ("mcica_optics_sw", mcica_optics_sw_plain, 112)):
+        fn, args, kw = calls[name]
+        print(f"{name} at {tuple(args[3].shape)}:")
+        out_k, out_p = fn(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        nopt = len(out_p) - 2
+        gate("cloudy mask mismatches",
+             float((out_k[nopt] != out_p[nopt]).sum()), 0)
+        gate("clear count mismatches",
+             float((out_k[nopt + 1] != out_p[nopt + 1]).sum()), 0)
+        for i in range(nopt):
+            gate(f"optics {i} relmax", relmax(out_k[i], out_p[i]), 1e-5)
+        timed(name, fn, plain, args, kw,
+              max(max_abs(a, b) for a, b in zip(out_k[:nopt], out_p[:nopt])),
+              mcica_bound(args, kw, out_k, ng, draw))
+
+    fn, args, kw = calls["taumol_lw"]
+    coefs, tabs = args[0], args[1]
+    print(f"taumol_lw at {tuple(coefs.jp.shape)}:")
+    tg_k, pf_k = fn(*args, **kw)
+    tg_p, pf_p = taumol_lw(*args, **kw)
     gate("taug relmax, worst band", band_relmax(tg_k, tg_p, NGS_LW), 5e-4)
     gate("pfracs relmax, worst band", band_relmax(pf_k, pf_p, NGS_LW), 5e-4)
     gen = torch.Generator(dev).manual_seed(SEED)
-    taua = 0.02 * torch.rand(ncol, NLEV, 16, device=dev, generator=gen)
+    taua = 0.02 * torch.rand(coefs.jp.shape + (16,), device=dev,
+                             generator=gen)
     gate("taug relmax with taua, worst band",
-         band_relmax(taumol_lw_fast(coefs, tabs, taua)[0],
-                     taumol_lw(coefs, tabs, taua)[0], NGS_LW), 5e-4)
-    results["taumol_lw"] = dict(
-        max_abs_err=max(max_abs(tg_k, tg_p), max_abs(pf_k, pf_p)),
-        ms=time_ms(torch, lambda: taumol_lw_fast(coefs, tabs), 20),
-        plain_ms=time_ms(torch, lambda: taumol_lw(coefs, tabs), 3))
+         band_relmax(fn(coefs, tabs, taua)[0], taumol_lw(coefs, tabs, taua)[0],
+                     NGS_LW), 5e-4)
+    fields = taumol_lw_cuda.FLOAT_FIELDS + taumol_lw_cuda.INT_FIELDS
+    timed("taumol_lw", fn, taumol_lw, args, kw,
+          max(max_abs(tg_k, tg_p), max_abs(pf_k, pf_p)),
+          taumol_bound(coefs, fields, tabs, 140, TAUMOL_LW_OPS, (tg_k, pf_k),
+                       args[2] if len(args) > 2 else None))
 
-    print(f"K4 rtrnmc at {ncol} x {NLEV}:")
-    k4_args = (emis, tg_p, pf_p, cld_p, tau_p, coefs.planklay,
-               coefs.planklev, coefs.plankbnd, coefs.dplankbnd_dts,
-               coefs.pwvcm)
-    out_k = rtrnmc_fast(*k4_args)
-    out_p = rtrnmc(*k4_args)
+    fn, args, kw = calls["rtrnmc"]
+    print(f"rtrnmc at {tuple(args[1].shape)}:")
+    out_k, out_p = fn(*args, **kw), rtrnmc(*args, **kw)
     for k in out_p:
         gate(f"{k} relmax", relmax(out_k[k], out_p[k]), 5e-4)
-    results["rtrnmc"] = dict(
-        max_abs_err=max(max_abs(out_k[k], out_p[k]) for k in out_p),
-        ms=time_ms(torch, lambda: rtrnmc_fast(*k4_args), 20),
-        plain_ms=time_ms(torch, lambda: rtrnmc(*k4_args), 3))
-    results.update(sw_kernel_phases(torch, dev, inp, play, h2o, o3, zm,
-                                    alpha, rcorr, ciwp, clwp))
-    return results
+    timed("rtrnmc", fn, rtrnmc, args, kw,
+          max(max_abs(out_k[k], out_p[k]) for k in out_p),
+          bound(nbytes(args, out_k),
+                fp_ops=args[1].numel() * RTRNMC_OPS))
 
-
-def sw_kernel_phases(torch, dev, inp, play, h2o, o3, zm, alpha, rcorr, ciwp,
-                     clwp):
-    """K2, K5 and K6 against their plain twins at NCOL_KERNEL x NLEV."""
-    from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
-        mean_cos_zenith
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_sw import \
-        band_optics_coeffs_sw
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
-        setcoef_sw
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import \
-        spcvmc_sw
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc_cuda import \
-        spcvmc_fast
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
-        NGS_SW, sfluxzen_only, taumol_sw)
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw_cuda import \
-        taumol_sw_fast
-    from geosradiation_gridcomp_tpu_torch.ops import mcica
-    from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
-        mcica_optics_sw, mcica_optics_sw_plain)
-
-    ncol = NCOL_KERNEL
-    sw = swm.RRTMGSW.from_reference_tables(dev)
-    results = {}
-    coeffs = torch.stack(band_optics_coeffs_sw(inp.ri, inp.rl,
-                                               sw.cloud_tables)).contiguous()
-    k2_args = (mcica.subcolumn_keys(play, swm.SEED_ORDER_SW), alpha, rcorr,
-               inp.fcld, ciwp, clwp, mcica._sigma_class(inp.fcld), coeffs,
-               sw.zcw_cols(1))
-    k2_kw = dict(cloud_mh=28, cloud_lm=47, inhm=1)
-    print(f"K2 mcica_optics_sw at {ncol} x {NLEV}:")
-    out_k = mcica_optics_sw(*k2_args, **k2_kw)
-    out_p = mcica_optics_sw_plain(*k2_args, **k2_kw)
-    torch.cuda.synchronize()
-    gate("cloudy mask mismatches", float((out_k[3] != out_p[3]).sum()), 0)
-    gate("clear count mismatches", float((out_k[4] != out_p[4]).sum()), 0)
-    for name, a, b in zip(("taucmc", "ssacmc", "asmcmc"), out_k, out_p):
-        gate(f"{name} relmax", relmax(a, b), 1e-5)
-    results["mcica_optics_sw"] = dict(
-        max_abs_err=max(max_abs(a, b) for a, b in zip(out_k[:3], out_p[:3])),
-        ms=time_ms(torch, lambda: mcica_optics_sw(*k2_args, **k2_kw), 20),
-        plain_ms=time_ms(torch, lambda: mcica_optics_sw_plain(
-            *k2_args, **k2_kw), 3))
-
-    coefs = setcoef_sw(play, inp.t, inp.ple * 0.01, h2o, o3, inp.co2,
-                       inp.ch4, torch.full_like(play, 0.2095),
-                       sw.reference_tables)
-    tabs = sw.taumol_tables
-    print(f"K5 taumol_sw at {ncol} x {NLEV}:")
-    tg_k, tr_k = taumol_sw_fast(coefs, tabs)
-    tg_p, tr_p = taumol_sw(coefs, tabs)
+    fn, args, kw = calls["taumol_sw"]
+    coefs, tabs = args
+    print(f"taumol_sw at {tuple(coefs.jp.shape)}:")
+    tg_k, tr_k = fn(*args, **kw)
+    tg_p, tr_p = taumol_sw(*args, **kw)
     gate("taug relmax, worst band", band_relmax(tg_k, tg_p, NGS_SW), 5e-4)
     gate("taur relmax, worst band", band_relmax(tr_k, tr_p, NGS_SW), 5e-4)
-    results["taumol_sw"] = dict(
-        max_abs_err=max(max_abs(tg_k, tg_p), max_abs(tr_k, tr_p)),
-        ms=time_ms(torch, lambda: taumol_sw_fast(coefs, tabs), 20),
-        plain_ms=time_ms(torch, lambda: taumol_sw(coefs, tabs), 3))
+    fields = taumol_sw_cuda.FLOAT_FIELDS + taumol_sw_cuda.INT_FIELDS
+    timed("taumol_sw", fn, taumol_sw, args, kw,
+          max(max_abs(tg_k, tg_p), max_abs(tr_k, tr_p)),
+          taumol_bound(coefs, fields, tabs, 112, TAUMOL_SW_OPS,
+                       (tg_k, tr_k)))
 
-    print(f"K6 spcvmc at {ncol} x {NLEV}:")
-    slr, lit = mean_cos_zenith(inp.lons, inp.lats, DOY, UTC, 1.0)
-    mu0 = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
-                      torch.zeros_like(slr))
-    sflux = sfluxzen_only(coefs, sw.solar_sources(
-        swm.solar_source_weights(-1, 1361.0)))
-    alb = torch.stack([inp.albnr] * 9 + [inp.albvr] * 4 + [inp.albnr],
-                      dim=1).contiguous()
-    albf = torch.stack([inp.albnf] * 9 + [inp.albvf] * 4 + [inp.albnf],
-                       dim=1).contiguous()
-    k6_args = (coefs, tg_p, tr_p, sflux, mu0, alb, albf, out_p[3],
-               *out_p[:3])
+    fn, args, kw = calls["spcvmc"]
+    ncol = args[1].shape[0]
+    print(f"spcvmc at {tuple(args[1].shape)}, ncld {kw.get('ncld')}:")
     gen = torch.Generator(dev).manual_seed(SEED)
     rnd = lambda lo, hi: lo + (hi - lo) * torch.rand(
         ncol, NLEV, 14, device=dev, generator=gen)
     aero = dict(taua=rnd(0.0, 0.1), ssaa=rnd(0.8, 1.0), asya=rnd(0.5, 0.8))
     err = 0.0
-    for label, kw in (("", {}), (" with aerosol", aero),
-                      (" with ncld 512", dict(ncld=512))):
-        a = spcvmc_fast(*k6_args, **kw)
-        b = spcvmc_sw(*k6_args, **kw)
+    for label, extra in (("", {}), (" with aerosol", aero),
+                         (" with ncld 512", dict(ncld=512))):
+        a = fn(*args, **{**kw, **extra})
+        b = spcvmc_sw(*args, **{**kw, **extra})
         gate(f"worst output relmax{label}",
              max(relmax(a[k], b[k]) for k in b), 5e-4)
         err = max(err, max(max_abs(a[k], b[k]) for k in b))
-    results["spcvmc"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: spcvmc_fast(*k6_args), 20),
-        plain_ms=time_ms(torch, lambda: spcvmc_sw(*k6_args), 3))
+    a, again = fn(*args, **kw), fn(*args, **kw)
+    gate("run-to-run mismatches",
+         float(sum(int((a[k] != again[k]).sum()) for k in a)), 0)
+    timed("spcvmc", fn, spcvmc_sw, args, kw, err, spcvmc_bound(args, kw, a))
     return results
 
 
-def raw_and_profiling_kernel_phases(torch, dev):
-    """K7, P1, P2 and P3 against their plain twins: K7, P1 and P3 at
-    NCOL_KERNEL x NLEV, P2 at the profiling tool's size."""
+def raw_and_profiling_kernel_phases(torch, dev, draw):
+    """K7, P1, P2 and P3 against their plain twins at the sizes their
+    paths give them: K7 at the verification suite's --quick 512 x NLEV,
+    P1 and P3 at the profiling tools' NCOL_KERNEL x NLEV, P2 at the
+    gather tool's 8192 x NLEV points."""
     from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
     from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import taumol_lw_cuda
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
         NGS_LW, VARIANTS, taumol_lw)
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import (
@@ -312,33 +365,43 @@ def raw_and_profiling_kernel_phases(torch, dev):
     ncol = NCOL_KERNEL
     results = {}
 
+    def timed(name, fn, plain, err, bnd, n_plain=3, library=None):
+        results[name] = dict(
+            max_abs_err=err, ms=time_ms(torch, fn, 20),
+            plain_ms=time_ms(torch, plain, n_plain), bound_ms=bnd[0],
+            bound_by=bnd[1],
+            library_ms=None if library is None else time_ms(torch, library,
+                                                            20))
+
     def exact(name, a, b):
         gate(f"{name} mismatches", float((a != b).sum()), 0)
         return max_abs(a, b)
 
-    inp = example_inputs(ncol, NLEV, seed=SEED, device=dev)
+    inp = example_inputs(NCOL_VERIFY, NLEV, seed=SEED, device=dev)
     play = rad._common_derived(inp)[0]
     zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
     alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
     k7_args = (mcica.subcolumn_keys(play), alpha, rcorr, inp.fcld)
-    print(f"K7 mcica_subcols_raw at {ncol} x {NLEV}:")
+    print(f"K7 mcica_subcols_raw at {NCOL_VERIFY} x {NLEV}:")
     a = mcica_subcols_raw(*k7_args, nsub=140)
     b = mcica_subcols_raw_plain(*k7_args, nsub=140)
-    results["mcica_subcols_raw"] = dict(
-        max_abs_err=max(exact("cloudy", a[0], b[0]), exact("v3", a[1], b[1])),
-        ms=time_ms(torch, lambda: mcica_subcols_raw(*k7_args, nsub=140), 20),
-        plain_ms=time_ms(torch, lambda: mcica_subcols_raw_plain(
-            *k7_args, nsub=140), 3))
+    # four draws per (cell, subcolumn), every column
+    timed("mcica_subcols_raw",
+          lambda: mcica_subcols_raw(*k7_args, nsub=140),
+          lambda: mcica_subcols_raw_plain(*k7_args, nsub=140),
+          max(exact("cloudy", a[0], b[0]), exact("v3", a[1], b[1])),
+          bound(nbytes(k7_args, a), seconds=issue_seconds(
+              draw_counts(draw, 4), inp.fcld.numel() * 140)))
 
     gen = torch.Generator(dev).manual_seed(SEED)
     v = torch.rand(ncol, NLEV, 140, device=dev, generator=gen)
     keep = (torch.rand(ncol, NLEV, 140, device=dev, generator=gen)
             > 0.6).float()
     print(f"P1 ffill on [{ncol}, {NLEV}, 140]:")
-    results["ffill"] = dict(
-        max_abs_err=exact("ffill", ffill(v, keep), ffill_plain(v, keep)),
-        ms=time_ms(torch, lambda: ffill(v, keep), 20),
-        plain_ms=time_ms(torch, lambda: ffill_plain(v, keep), 3))
+    out = ffill(v, keep)
+    timed("ffill", lambda: ffill(v, keep), lambda: ffill_plain(v, keep),
+          exact("ffill", out, ffill_plain(v, keep)),
+          bound(nbytes(v, keep, out), fp_ops=v.numel()))
 
     n, rows = 8192 * NLEV, 585
     tab = torch.randn(rows, 16, device=dev, generator=gen)
@@ -347,17 +410,18 @@ def raw_and_profiling_kernel_phases(torch, dev):
                         dtype=torch.int32)
     idx2d = idx.reshape(-1, 128)
     print(f"P2 gather_rows, gather_lanes at {n} points, {rows} x 16 table:")
-    results["gather_rows"] = dict(
-        max_abs_err=exact("gather_rows", gather_rows(idx, tab),
-                          gather_rows_plain(idx, tab)),
-        ms=time_ms(torch, lambda: gather_rows(idx, tab), 20),
-        plain_ms=time_ms(torch, lambda: gather_rows_plain(idx, tab), 20))
-    results["gather_lanes"] = dict(
-        max_abs_err=exact("gather_lanes", gather_lanes(idx2d, tabt),
-                          gather_lanes_plain(idx2d, tabt)),
-        ms=time_ms(torch, lambda: gather_lanes(idx2d, tabt), 20),
-        plain_ms=time_ms(torch, lambda: gather_lanes_plain(idx2d, tabt),
-                         20))
+    out = gather_rows(idx, tab)
+    # the library call: PyTorch's advanced indexing, tab[idx]
+    timed("gather_rows", lambda: gather_rows(idx, tab),
+          lambda: gather_rows_plain(idx, tab),
+          exact("gather_rows", out, gather_rows_plain(idx, tab)),
+          bound(nbytes(idx, tab, out)), n_plain=20,
+          library=lambda: tab[idx])
+    out = gather_lanes(idx2d, tabt)
+    timed("gather_lanes", lambda: gather_lanes(idx2d, tabt),
+          lambda: gather_lanes_plain(idx2d, tabt),
+          exact("gather_lanes", out, gather_lanes_plain(idx2d, tabt)),
+          bound(nbytes(idx2d, tabt, out)), n_plain=20)
 
     coefs, tabs = lw_coefs(dev, ncol)
     print(f"P3 taumol_lw_bisect at {ncol} x {NLEV}:")
@@ -376,11 +440,12 @@ def raw_and_profiling_kernel_phases(torch, dev):
         err = max(err, max_abs(tg_k, tg_p), max_abs(pf_k, pf_p))
         ms = time_ms(torch, lambda: taumol_lw_bisect(coefs, tabs, parts), 20)
         print(f"  {name}: {ms:.4f} ms")
-    results["taumol_lw_bisect"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: taumol_lw_bisect(coefs, tabs,
-                                                   VARIANTS["full"]), 20),
-        plain_ms=time_ms(torch, lambda: taumol_lw(coefs, tabs), 3))
+    timed("taumol_lw_bisect",
+          lambda: taumol_lw_bisect(coefs, tabs, VARIANTS["full"]),
+          lambda: taumol_lw(coefs, tabs), err,
+          taumol_bound(coefs, taumol_lw_cuda.FLOAT_FIELDS
+                       + taumol_lw_cuda.INT_FIELDS, tabs, 140, TAUMOL_LW_OPS,
+                       full))
     return results
 
 
@@ -418,7 +483,8 @@ def profiling_path(torch):
 
 def step_phase(torch, dev):
     """radiation_refresh + radiation_update at full width through their
-    entry points, as bench.py drives the reference."""
+    entry points, as bench.py drives the reference; returns the launches,
+    the step's set-up and the recorded first call of each step kernel."""
     from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
     from geosradiation_gridcomp_tpu_torch.driver.step import (
         radiation_refresh, radiation_update, sw_partition_bounds)
@@ -426,6 +492,8 @@ def step_phase(torch, dev):
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import RRTMGLW
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.sw import RRTMGSW
     from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+    from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import \
+        recording
 
     ncol = NCOL_SLICE
     inp = example_inputs(ncol, NLEV, seed=SEED, device=dev)
@@ -455,11 +523,12 @@ def step_phase(torch, dev):
 
     print(f"step: radiation_refresh + radiation_update at {ncol} x {NLEV}, "
           f"ict={ict} icb={icb}, sw_nlit={nlit} sw_ncld={ncld}:")
-    torch.cuda.synchronize()
-    LAUNCHES.clear()
-    sol, irr, upd = run(plain=False)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    with recording() as calls:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        sol, irr, upd = run(plain=False)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
     print(f"  kernel launches in the main path: {launches}")
     require_launched(launches, "step")
     sol_p, irr_p, upd_p = run(plain=True)
@@ -534,7 +603,7 @@ def step_phase(torch, dev):
           f"{t_kern} / {t_plain}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return launches, dict(inp=inp, cfg=cfg, ict=ict, icb=icb, nlit=nlit,
-                          ncld=ncld, mods=mods, refresh=refresh)
+                          ncld=ncld, mods=mods, refresh=refresh), calls
 
 
 def profile_phase(torch, step, nwall=30, nprof=5):
@@ -669,6 +738,8 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only "
                          "on a GPU")
     from geosradiation_gridcomp_tpu_torch.kernels import build
+    from geosradiation_gridcomp_tpu_torch.tools.profiling import \
+        kernel_resources
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -684,10 +755,14 @@ def main():
     build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}")
 
+    draw = kernel_resources.threefry_counts()
+    print(f"one threefry draw: {sum(draw.values())} SASS instructions "
+          f"{draw}, {1e12 * issue_seconds(draw, 1):.3f} ps on the card")
     dev = torch.device("cuda", 0)
-    results = kernel_phases(torch, dev)
-    results.update(raw_and_profiling_kernel_phases(torch, dev))
-    launches, step = step_phase(torch, dev)
+    launches, step, calls = step_phase(torch, dev)
+    results = step_kernel_phases(torch, dev, calls, draw)
+    del calls
+    results.update(raw_and_profiling_kernel_phases(torch, dev, draw))
     if args.profile:
         profile_phase(torch, step)
     paths = {"step": launches, "verify": verify_path(torch),
@@ -695,17 +770,21 @@ def main():
     for path in ("verify", "profiling"):
         print(f"  kernel launches in the {path} path: {paths[path]}")
         require_launched(paths[path], path)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "geosradiation_gridcomp_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded[:5]}")
 
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         r = results[name]
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, path=path,
-                            launches=paths[path][name],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            path=path, launches=paths[path][name],
+            launches_per_refresh=paths[path][name] if path == "step"
+            else 0, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,16 @@ Every Pallas kernel of the reference becomes a CUDA C++ kernel under
 ctypes; each has a plain-PyTorch twin that the wrapper runs for CPU
 tensors.
 
-The coefficient tables and the configuration are read through the
-reference's numpy-only modules (`constants`, `config`, `tables`,
-`models/rrtmg/tables_lw`), which import no jax.
+The port stands alone: it imports neither jax nor anything of the
+reference package. It keeps its own copies of the reference's numpy-only
+modules (`config`, `constants`, `tables`, `models/rrtmg/tables_lw`,
+`tables_sw`, `nrlssi2`) under the same names, and reads the coefficient
+tables (npz data) from the reference's `data/` directory by path.
+
+The constructors (`scene.example_inputs`, `RRTMGLW/RRTMGSW.
+from_reference_tables` and the table loaders) put their tensors on the
+card unless the caller passes `device="cpu"`; the drivers follow the
+device of their inputs.
 """
 
 __version__ = "0.1.0"

@@ -60,8 +60,8 @@ __host__ __device__ constexpr int nspb_of(int b) {
 }
 
 struct Cell {
-    float f[NFF];
-    int i[NIF];
+    const float* f;      // this cell's float planes [NFF] (shared memory)
+    const int* i;        // its int planes [NIF] (shared memory)
     const float* P;      // packed tables
     const int* ob;       // this band's table offsets [NKEY]
     const float* chi;    // chi_mls (7, 59)
@@ -636,37 +636,11 @@ __device__ void run_band(const Cell& c, float* tg, float* pf, float ta) {
     }
 }
 
-constexpr int BLOCK = 128;
-
+// Evaluate band `band` (1-based) of one cell; tg/pf point at the cell's
+// rows of 140 g-points.
 template <unsigned P>
-__global__ void __launch_bounds__(BLOCK)
-taumol_lw_kernel(const float* __restrict__ fplanes,
-                 const int* __restrict__ iplanes,
-                 const float* __restrict__ pack,
-                 const int* __restrict__ offsets,
-                 const float* __restrict__ taua,
-                 float* __restrict__ taug, float* __restrict__ pfracs,
-                 int ncells) {
-    const int cell = blockIdx.x * BLOCK + threadIdx.x;
-    const int band = blockIdx.y + 1;
-    if (cell >= ncells) return;
-    Cell c;
-#pragma unroll
-    for (int k = 0; k < NFF; ++k)
-        c.f[k] = fplanes[static_cast<size_t>(k) * ncells + cell];
-#pragma unroll
-    for (int k = 0; k < NIF; ++k)
-        c.i[k] = iplanes[static_cast<size_t>(k) * ncells + cell];
-    c.P = pack;
-    c.ob = offsets + (band - 1) * NKEY;
-    c.chi = pack + offsets[16 * NKEY];
-    c.self10 = pack + offsets[16 * NKEY + 1];
-    c.for4 = pack + offsets[16 * NKEY + 2];
-    const size_t o = static_cast<size_t>(cell) * NGPT;
-    const float ta = taua ? taua[static_cast<size_t>(cell) * NBND + band - 1]
-                          : 0.0f;
-    float* tg = taug + o;
-    float* pf = pfracs + o;
+__device__ void eval_band(int band, const Cell& c, float* tg, float* pf,
+                          float ta) {
     switch (band) {
         case 1: run_band<1, P>(c, tg + ngs_of(1), pf + ngs_of(1), ta); break;
         case 2: run_band<2, P>(c, tg + ngs_of(2), pf + ngs_of(2), ta); break;
@@ -687,17 +661,129 @@ taumol_lw_kernel(const float* __restrict__ fplanes,
     }
 }
 
-// Launch the kernel of parts P over ncells cells (taua may be null).
+// The kernel. The cells are [ncol][nlay]; one block takes a tile of TILE
+// columns at one layer (lane = column), because cells at one layer of
+// neighbouring columns share pressure and temperature indices and so read
+// the same k-table rows: a warp's gather then touches a few cache lines
+// where 32 layers of one column touch 32. Consecutive blocks take
+// consecutive layers of the same columns. NWARP warps; warp w evaluates two
+// bands one after the other, paired so that the warps' g-point counts are
+// near equal (18, 18, 16, 16, 18, 20, 18, 16 of 140), and a warp never
+// diverges over bands. The tile's 32 per-cell planes are loaded once into
+// shared memory; every thread evaluates its (cell, band) into the tile's
+// [TILE][ROW] rows of taug and pfracs in shared memory (ROW = 141: a row of
+// 140 g-points padded by one float, so the 32 lanes of a warp writing one
+// g-point land on 32 distinct banks); then the block writes each cell's
+// two rows of 560 bytes as coalesced 16-byte stores (a row starts at a
+// multiple of 16 bytes; the sectors it shares with the next layer's row are
+// completed by the next block in L2). The last column group may hold fewer
+// than TILE columns and is masked here. Two blocks fit an SM, so one
+// block's loads and stores overlap the other's arithmetic.
+constexpr int TILE = 32;
+constexpr int NWARP = 8;
+constexpr int BLOCK = NWARP * 32;
+constexpr int ROW = NGPT + 1;
+constexpr int NPLANE = NFF + NIF;         // 32 planes of one cell
+constexpr int TA_ROW = NBND + 1;          // padded taua row of one cell
+
+// band (1-based) of warp w's first (half 0) or second (half 1) pass
+__device__ __forceinline__ int warp_band(int w, int half) {
+    constexpr int A[NWARP] = {3, 5, 4, 2, 7, 9, 1, 11};
+    constexpr int B[NWARP] = {14, 15, 16, 13, 10, 6, 8, 12};
+    return half == 0 ? A[w] : B[w];
+}
+
+template <unsigned P>
+__global__ void __launch_bounds__(BLOCK, 2)
+taumol_lw_kernel(const float* __restrict__ fplanes,
+                 const int* __restrict__ iplanes,
+                 const float* __restrict__ pack,
+                 const int* __restrict__ offsets,
+                 const float* __restrict__ taua,
+                 float* __restrict__ taug, float* __restrict__ pfracs,
+                 int ncol, int nlay) {
+    __shared__ __align__(16) float s_tg[TILE * ROW];
+    __shared__ __align__(16) float s_pf[TILE * ROW];
+    // the tile's planes, [TILE][NFF] and [TILE][NIF]: a lane's fields are
+    // contiguous, and lanes reading one field hit distinct banks (NFF and
+    // NIF are odd)
+    __shared__ float s_f[TILE * NFF];
+    __shared__ int s_i[TILE * NIF];
+    __shared__ float s_ta[TILE * TA_ROW];
+
+    const int t = threadIdx.x;
+    const int lane = t % 32;
+    const int warp = t / 32;
+    const int lay = blockIdx.x % nlay;
+    const int col0 = blockIdx.x / nlay * TILE;
+    const int n = ncol - col0 < TILE ? ncol - col0 : TILE;
+    const size_t ncells = static_cast<size_t>(ncol) * nlay;
+    // the tile's cell c is (col0 + c, lay)
+    auto cell = [&](int c) {
+        return static_cast<size_t>(col0 + c) * nlay + lay;
+    };
+
+    for (int e = t; e < NPLANE * TILE; e += BLOCK) {
+        const int k = e / TILE, c = e % TILE;
+        if (c < n) {
+            if (k < NFF)
+                s_f[c * NFF + k] = fplanes[k * ncells + cell(c)];
+            else
+                s_i[c * NIF + k - NFF] = iplanes[(k - NFF) * ncells + cell(c)];
+        }
+    }
+    if (taua != nullptr) {
+        for (int e = t; e < TILE * NBND; e += BLOCK) {
+            const int c = e / NBND, b = e % NBND;
+            if (c < n) s_ta[c * TA_ROW + b] = taua[cell(c) * NBND + b];
+        }
+    }
+    __syncthreads();
+
+    if (lane < n) {
+        Cell c;
+        c.f = s_f + lane * NFF;
+        c.i = s_i + lane * NIF;
+        c.P = pack;
+        c.chi = pack + offsets[16 * NKEY];
+        c.self10 = pack + offsets[16 * NKEY + 1];
+        c.for4 = pack + offsets[16 * NKEY + 2];
+        float* tg = s_tg + lane * ROW;
+        float* pf = s_pf + lane * ROW;
+        for (int half = 0; half < 2; ++half) {
+            const int band = warp_band(warp, half);
+            c.ob = offsets + (band - 1) * NKEY;
+            const float ta = taua ? s_ta[lane * TA_ROW + band - 1] : 0.0f;
+            eval_band<P>(band, c, tg, pf, ta);
+        }
+    }
+    __syncthreads();
+
+    // each cell's row is 140 floats, 35 float4s: thread t stores float4s
+    // t, t + BLOCK, ... of the tile's n rows
+    for (int q = t; q < n * (NGPT / 4); q += BLOCK) {
+        const int c = q / (NGPT / 4), v = q % (NGPT / 4);
+        const int j = c * ROW + 4 * v;
+        const size_t o = cell(c) * NGPT + 4 * v;
+        *reinterpret_cast<float4*>(taug + o) =
+            make_float4(s_tg[j], s_tg[j + 1], s_tg[j + 2], s_tg[j + 3]);
+        *reinterpret_cast<float4*>(pfracs + o) =
+            make_float4(s_pf[j], s_pf[j + 1], s_pf[j + 2], s_pf[j + 3]);
+    }
+}
+
+// Launch the kernel of parts P over the [ncol][nlay] cells (taua may be
+// null).
 template <unsigned P>
 int launch_taumol_lw(const float* fplanes, const int* iplanes,
                      const float* pack, const int* offsets, const float* taua,
-                     float* taug, float* pfracs, int ncells, int noffsets,
-                     void* stream) {
-    if (ncells <= 0 || noffsets != NOFFSETS)
+                     float* taug, float* pfracs, int ncol, int nlay,
+                     int noffsets, void* stream) {
+    if (ncol <= 0 || nlay <= 0 || noffsets != NOFFSETS)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((ncells + BLOCK - 1) / BLOCK, NBND);
+    const dim3 grid((ncol + TILE - 1) / TILE * nlay);
     taumol_lw_kernel<P><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-        fplanes, iplanes, pack, offsets, taua, taug, pfracs, ncells);
+        fplanes, iplanes, pack, offsets, taua, taug, pfracs, ncol, nlay);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,10 @@
 // cell loads, the per-cell set-up and the stores alone. With every part on
 // the kernel is K3's, bit for bit.
 //
-// Bound on the H100: as K3 (table gathers, then the 660 MB of stores at
-// 8192 x 72 x 140); the design is K3's.
+// Bound on the H100: as K3 (the 660 MB of stores at 8192 x 72 x 140, then
+// the table gathers); the design is K3's: one block per tile of 32 columns
+// at one layer, each warp two bands, the outputs assembled in shared
+// memory.
 
 #include "taumol_lw.cuh"
 
@@ -20,10 +22,10 @@ namespace {
 
 template <unsigned P>
 int run(const float* fplanes, const int* iplanes, const float* pack,
-        const int* offsets, float* taug, float* pfracs, int ncells,
+        const int* offsets, float* taug, float* pfracs, int ncol, int nlay,
         int noffsets, void* stream) {
     return launch_taumol_lw<P>(fplanes, iplanes, pack, offsets, nullptr,
-                               taug, pfracs, ncells, noffsets, stream);
+                               taug, pfracs, ncol, nlay, noffsets, stream);
 }
 
 }  // namespace
@@ -31,34 +33,21 @@ int run(const float* fplanes, const int* iplanes, const float* pack,
 // parts: the mask of one variant (models/rrtmg/taumol_lw.py:VARIANTS).
 extern "C" int taumol_lw_bisect(const float* fplanes, const int* iplanes,
                                 const float* pack, const int* offsets,
-                                float* taug, float* pfracs, int ncells,
-                                int noffsets, int parts, void* stream) {
+                                float* taug, float* pfracs, int ncol,
+                                int nlay, int noffsets, int parts,
+                                void* stream) {
+    int (*fn)(const float*, const int*, const float*, const int*, float*,
+              float*, int, int, int, void*);
     switch (parts) {
-        case ALL:
-            return run<ALL>(fplanes, iplanes, pack, offsets, taug, pfracs,
-                            ncells, noffsets, stream);
-        case MAJOR | MINOR | PLANCK:
-            return run<MAJOR | MINOR | PLANCK>(fplanes, iplanes, pack,
-                                               offsets, taug, pfracs, ncells,
-                                               noffsets, stream);
-        case MAJOR | CONT | PLANCK:
-            return run<MAJOR | CONT | PLANCK>(fplanes, iplanes, pack, offsets,
-                                              taug, pfracs, ncells, noffsets,
-                                              stream);
-        case MAJOR | MINOR | CONT:
-            return run<MAJOR | MINOR | CONT>(fplanes, iplanes, pack, offsets,
-                                             taug, pfracs, ncells, noffsets,
-                                             stream);
-        case MAJOR:
-            return run<MAJOR>(fplanes, iplanes, pack, offsets, taug, pfracs,
-                              ncells, noffsets, stream);
-        case MINOR:
-            return run<MINOR>(fplanes, iplanes, pack, offsets, taug, pfracs,
-                              ncells, noffsets, stream);
-        case 0:
-            return run<0>(fplanes, iplanes, pack, offsets, taug, pfracs,
-                          ncells, noffsets, stream);
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
+        case ALL: fn = run<ALL>; break;
+        case MAJOR | MINOR | PLANCK: fn = run<MAJOR | MINOR | PLANCK>; break;
+        case MAJOR | CONT | PLANCK: fn = run<MAJOR | CONT | PLANCK>; break;
+        case MAJOR | MINOR | CONT: fn = run<MAJOR | MINOR | CONT>; break;
+        case MAJOR: fn = run<MAJOR>; break;
+        case MINOR: fn = run<MINOR>; break;
+        case 0: fn = run<0>; break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    return fn(fplanes, iplanes, pack, offsets, taug, pfracs, ncol, nlay,
+              noffsets, stream);
 }

@@ -15,8 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from geosradiation_gridcomp_tpu.config import RadiationConfig, Scheme
-from geosradiation_gridcomp_tpu.constants import CP, GRAV
+from ..config import RadiationConfig, Scheme
+from ..constants import CP, GRAV
 
 from ..models.rrtmg.lw import (RRTMGLW, level_temperatures, mid_heights,
                                rrtmg_lw)

@@ -14,8 +14,8 @@ absliq1 (58, 16).
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_lw import NG_LW
-from geosradiation_gridcomp_tpu.tables import load
+from ...tables import load
+from .tables_lw import NG_LW
 
 # band -> 5-band index for iceflag==1 (rrlw_cld.F90:21-22)
 _ICE1B = np.array([1, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5, 5, 5, 5, 5, 5]) - 1
@@ -26,7 +26,7 @@ CLOUD_TABLE_KEYS = ("absice0", "absice1", "absice2", "absice3", "absice4",
                     "absliq1")
 
 
-def lw_cloud_tables(device=None):
+def lw_cloud_tables(device="cuda"):
     """The rrtmg_lw_cld tables as float32 tensors on device."""
     t = load("rrtmg_lw_cld")
     return {k: torch.as_tensor(t[k], device=device) for k in CLOUD_TABLE_KEYS}

@@ -16,8 +16,8 @@ The tables come from `sw_cloud_tables` (or the RRTMGSW module's buffers).
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_sw import NG_SW
-from geosradiation_gridcomp_tpu.tables import load
+from ...tables import load
+from .tables_sw import NG_SW
 
 # g-point -> 0-based band
 BAND_G = np.repeat(np.arange(14), NG_SW)
@@ -28,7 +28,7 @@ CLOUD_TABLE_KEYS = ("ice1_coeffs", "extice2", "ssaice2", "asyice2",
                     "ssaliq1", "asyliq1")
 
 
-def sw_cloud_tables(device=None):
+def sw_cloud_tables(device="cuda"):
     """The rrtmg_sw_cld tables as float32 tensors on device; the six
     Ebert-Curry coefficients are taken per band (icxa) as ice1_coeffs
     (6, 14)."""

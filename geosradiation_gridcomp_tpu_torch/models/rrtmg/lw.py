@@ -12,9 +12,7 @@ All inputs TOA-first. Water paths are IN-CLOUD values in g/m^2.
 import torch
 from torch import nn
 
-from geosradiation_gridcomp_tpu.constants import AMD, GRAV, RGAS
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_lw import lw_tables
-
+from ...constants import AMD, GRAV, RGAS
 from ...ops.mcica import (_sigma_class, overlap_params, subcolumn_keys,
                           zcw_class_columns)
 from ...ops.mcica_cuda import mcica_optics_lw, mcica_optics_lw_plain
@@ -22,6 +20,7 @@ from .cldprmc_lw import CLOUD_TABLE_KEYS, band_abs_coeffs_lw, lw_cloud_tables
 from .rtrnmc import rtrnmc
 from .rtrnmc_cuda import rtrnmc_fast
 from .setcoef_lw import setcoef_lw
+from .tables_lw import lw_tables
 from .taumol_lw import (TaumolTables, pack_taumol_tables, taumol_lw,
                         taumol_offsets)
 from .taumol_lw_cuda import taumol_lw_fast
@@ -74,8 +73,9 @@ class RRTMGLW(nn.Module):
             self.register_buffer(k, v)
 
     @classmethod
-    def from_reference_tables(cls, device=None):
-        """Build the buffers from the JAX package's own numpy tables."""
+    def from_reference_tables(cls, device="cuda"):
+        """Build the buffers on device from the reference's numpy tables
+        (the port's copies of its loaders)."""
         return cls(*reference_buffers(device))
 
     @property
@@ -109,12 +109,12 @@ class RRTMGLW(nn.Module):
                         plain=plain)
 
 
-def lw_planck_tables(device=None):
+def lw_planck_tables(device="cuda"):
     t = lw_tables()
     return {k: torch.as_tensor(t[k], device=device) for k in PLANCK_KEYS}
 
 
-def reference_buffers(device=None):
+def reference_buffers(device="cuda"):
     """(taumol_pack, taumol_index, planck, cloud, zcw) from the reference's
     numpy tables: lw_tables()/lw_gather_tables() for the k-distribution,
     rrtmg_lw_cld for cloud optics, the Planck tables, and the (3, 1000)

@@ -12,7 +12,7 @@ Vertical ordering: TOA first (index 0 = top layer), levels [0] = TOA.
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_lw import NG_LW
+from .tables_lw import NG_LW
 
 _WTDIFF = 0.5
 _FLUXFAC = np.pi * 2.0e4

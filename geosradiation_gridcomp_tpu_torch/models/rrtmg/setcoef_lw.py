@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from geosradiation_gridcomp_tpu.constants import GRAV, AVOGAD, AMD, AMW
+from ...constants import GRAV, AVOGAD, AMD, AMW
 
 _STPFAC = 296.0 / 1013.0
 

@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from geosradiation_gridcomp_tpu.constants import AMD, AMW, AVOGAD, GRAV
+from ...constants import AMD, AMW, AVOGAD, GRAV
 
 _STPFAC = 296.0 / 1013.0
 

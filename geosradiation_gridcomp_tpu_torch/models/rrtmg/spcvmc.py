@@ -15,7 +15,7 @@ All arrays TOA-first: layer k spans levels k (top) and k+1 (bottom).
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_sw import NG_SW
+from .tables_sw import NG_SW
 
 NGB14 = np.repeat(np.arange(1, 15), NG_SW)    # g-point -> band (1..14)
 _WCRIT_RESID = 1.0 - 0.9999995

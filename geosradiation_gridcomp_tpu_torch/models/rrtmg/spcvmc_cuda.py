@@ -3,11 +3,13 @@
 Replaces the TPU kernels geosradiation_gridcomp_tpu/models/rrtmg/
 spcvmc_pallas.py:spcvmc_fast (two pallas_calls: up pass, then down pass)
 with one CUDA launch (csrc/spcvmc.cu) that computes what the CPU oracle
-spcvmc_sw computes: one thread per (column, g-point) runs both streams'
-up and down adding sweeps, recomputing each layer's reflectance and
-transmittance in the down sweep, and each level's sums over g are block
-reductions in a fixed order. The all-sky stream honours ncld as the
-oracle does.
+spcvmc_sw computes: one block per column, one thread per g-point carrying
+the clear and the all-sky stream through the up and down adding sweeps;
+the up sweep keeps each layer's reflectance and transmittance in a
+scratch for the down sweep;
+each level's sums over g are taken from shared memory in g order after
+the sweep, so they are deterministic. The all-sky stream honours ncld as
+the oracle does.
 """
 
 import numpy as np
@@ -31,8 +33,10 @@ def launch(lib, taug, taur, sfluxzen, mu0, albdir, albdif, cldymc, taucmc,
     mu0c = torch.clamp(mu0, min=1e-4).contiguous()
     zincflx = (adjflux * sfluxzen * mu0c[:, None]).contiguous()
     weights = torch.as_tensor(WEIGHTS, device=dev)
-    scratch = torch.empty((ncol, nlay, 4, 112), dtype=torch.float32,
-                          device=dev)
+    # per (layer, stream): rup, rupd and the layer's ref, tra, refd, trad
+    # and direct transmittance
+    scratch = torch.empty((ncol, nlay, 2, 7, 112),
+                          dtype=torch.float32, device=dev)
     lev = torch.empty((len(LEVEL_KEYS), ncol, nlay + 1), dtype=torch.float32,
                       device=dev)
     sfc = torch.empty((len(SFC_KEYS), ncol), dtype=torch.float32, device=dev)
@@ -47,8 +51,7 @@ def launch(lib, taug, taur, sfluxzen, mu0, albdir, albdif, cldymc, taucmc,
             albdif.data_ptr(), zincflx.data_ptr(), weights.data_ptr(),
             scratch.data_ptr(), lev.data_ptr(), sfc.data_ptr(),
             band.data_ptr(), ncol, nlay,
-            ncol if ncld is None else min(ncld, ncol),
-            build.stream_of(taug))
+            ncol if ncld is None else min(ncld, ncol), build.stream_of(taug))
     build.check(rc, "spcvmc_sw")
     return {**dict(zip(LEVEL_KEYS, lev)), **dict(zip(SFC_KEYS, sfc)),
             **dict(zip(BAND_KEYS, band))}

@@ -14,19 +14,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from geosradiation_gridcomp_tpu.models.rrtmg.nrlssi2 import \
-    solar_source_weights
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_sw import (NGPTSW,
-                                                               sw_tables)
-
 from ...ops.mcica import (_sigma_class, overlap_params, subcolumn_keys,
                           zcw_class_columns)
 from ...ops.mcica_cuda import mcica_optics_sw, mcica_optics_sw_plain
 from .cldprmc_sw import (CLOUD_TABLE_KEYS, band_optics_coeffs_sw,
                          sw_cloud_tables)
+from .nrlssi2 import solar_source_weights
 from .setcoef_sw import setcoef_sw
 from .spcvmc import spcvmc_sw
 from .spcvmc_cuda import spcvmc_fast
+from .tables_sw import NGPTSW, sw_tables
 from .taumol_lw import TaumolTables
 from .taumol_sw import (solar_source_tables, sfluxzen_only, taumol_sw,
                         taumol_tables)
@@ -58,8 +55,9 @@ class RRTMGSW(nn.Module):
         self._sources = {}
 
     @classmethod
-    def from_reference_tables(cls, device=None):
-        """Build the buffers from the JAX package's own numpy tables."""
+    def from_reference_tables(cls, device="cuda"):
+        """Build the buffers on device from the reference's numpy tables
+        (the port's copies of its loaders)."""
         t = sw_tables()
         reference = {k: torch.as_tensor(t[k], device=device)
                      for k in ("preflog", "tref")}

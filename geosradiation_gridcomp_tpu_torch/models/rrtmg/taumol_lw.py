@@ -23,8 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_lw import (
-    NG_LW, NGS_LW, NSPA, NSPB, lw_gather_tables, lw_tables)
+from .tables_lw import (NG_LW, NGS_LW, NSPA, NSPB, lw_gather_tables,
+                        lw_tables)
 
 _ONEMINUS = 1.0 - 1.0e-6
 

@@ -3,9 +3,12 @@ bisection (kernel P3) and their plain twins.
 
 K3 replaces the TPU kernel geosradiation_gridcomp_tpu/models/rrtmg/
 taumol_lw_pallas.py:taumol_lw_fast with a CUDA kernel (csrc/taumol_lw.cu)
-that evaluates the per-band reference engine (taumol_lw_ref) one thread
-per (cell, band): the band's lower or upper formula, looped over its
-g-points, reading the packed k-distribution of TaumolTables. P3 replaces
+that evaluates the per-band reference engine (taumol_lw_ref) for a tile
+of 32 columns at one layer per block, each warp two bands and one lane
+per column: the band's lower or upper formula, looped over its g-points,
+reading the packed k-distribution of TaumolTables; the tile's rows of
+both outputs are assembled in shared memory and written as contiguous
+16-byte stores. P3 replaces
 the reference's profiling kernel tools/profiling/taumol_lw_bisect.py:make:
 K3's body (csrc/taumol_lw.cuh) compiled with parts left out
 (csrc/taumol_lw_bisect.cu), one variant per entry of VARIANTS.
@@ -30,29 +33,31 @@ PART_BITS = {"major": 1, "minor": 2, "cont": 4, "planck": 8}
 
 
 def _planes(coefs):
-    """The per-cell float and int planes the kernel reads, and the
-    output shape [*cells, 140]."""
+    """The per-cell float and int planes the kernel reads, the output
+    shape [*cells, 140] and the cells as (ncol, nlay): the last axis is
+    the layer (a flat cell axis counts as one layer)."""
     shape = coefs.jp.shape
     ncells = int(np.prod(shape))
+    nlay = shape[-1] if len(shape) > 1 else 1
     fplanes = torch.stack([getattr(coefs, k).reshape(ncells)
                            for k in FLOAT_FIELDS]).contiguous()
     iplanes = torch.stack([getattr(coefs, k).reshape(ncells).to(torch.int32)
                            for k in INT_FIELDS]).contiguous()
-    return fplanes, iplanes, shape + (140,)
+    return fplanes, iplanes, shape + (140,), (ncells // nlay, nlay)
 
 
 def launch(lib, coefs, tabs, taua=None):
     """Stack the per-cell fields, allocate the outputs and launch K3 from
     lib; returns (taug, pfracs) [*cells, 140]."""
-    fplanes, iplanes, shape = _planes(coefs)
+    fplanes, iplanes, shape, (ncol, nlay) = _planes(coefs)
     ncells = fplanes.shape[1]
     taug = torch.empty(shape, dtype=torch.float32, device=fplanes.device)
     pfracs = torch.empty_like(taug)
     ta = None if taua is None else taua.reshape(ncells, 16).contiguous()
-    fn = build.entry(lib, "taumol_lw", 7, 2)
+    fn = build.entry(lib, "taumol_lw", 7, 3)
     rc = fn(fplanes.data_ptr(), iplanes.data_ptr(), tabs.pack.data_ptr(),
             tabs.offsets.data_ptr(), None if ta is None else ta.data_ptr(),
-            taug.data_ptr(), pfracs.data_ptr(), ncells, N_OFFSETS,
+            taug.data_ptr(), pfracs.data_ptr(), ncol, nlay, N_OFFSETS,
             build.stream_of(fplanes))
     build.check(rc, "taumol_lw")
     return taug, pfracs
@@ -61,13 +66,13 @@ def launch(lib, coefs, tabs, taua=None):
 def launch_bisect(lib, coefs, tabs, parts):
     """Launch the P3 variant computing `parts` from lib; returns (taug,
     pfracs) [*cells, 140]."""
-    fplanes, iplanes, shape = _planes(coefs)
+    fplanes, iplanes, shape, (ncol, nlay) = _planes(coefs)
     taug = torch.empty(shape, dtype=torch.float32, device=fplanes.device)
     pfracs = torch.empty_like(taug)
-    fn = build.entry(lib, "taumol_lw_bisect", 6, 3)
+    fn = build.entry(lib, "taumol_lw_bisect", 6, 4)
     rc = fn(fplanes.data_ptr(), iplanes.data_ptr(), tabs.pack.data_ptr(),
             tabs.offsets.data_ptr(), taug.data_ptr(), pfracs.data_ptr(),
-            fplanes.shape[1], N_OFFSETS,
+            ncol, nlay, N_OFFSETS,
             sum(PART_BITS[p] for p in parts), build.stream_of(fplanes))
     build.check(rc, "taumol_lw_bisect")
     return taug, pfracs

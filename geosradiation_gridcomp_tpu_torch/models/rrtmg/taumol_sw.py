@@ -19,9 +19,8 @@ the NRLSSI2 weights folded in (`solar_source_tables`).
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_sw import (  # noqa: F401
+from .tables_sw import (  # noqa: F401
     LAYREFFR, NG_SW, NGS_SW, NSPA, NSPB, SOLFR_UPPER, STRRAT, sw_tables)
-
 from .taumol_lw import TaumolTables, _take
 
 _ONEMINUS = 1.0 - 1.0e-6
@@ -75,7 +74,7 @@ def taumol_offsets(index):
     return o.reshape(-1)
 
 
-def taumol_tables(device=None):
+def taumol_tables(device="cuda"):
     pack, index = pack_taumol_tables()
     return TaumolTables(torch.as_tensor(pack, device=device),
                         torch.as_tensor(taumol_offsets(index), device=device),

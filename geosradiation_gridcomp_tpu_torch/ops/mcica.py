@@ -13,8 +13,7 @@ Vertical ordering: TOA at index 0.
 import numpy as np
 import torch
 
-from geosradiation_gridcomp_tpu.tables import load
-
+from ..tables import load
 from . import threefry
 
 # Oreopoulos et al. (2012) decorrelation-length parameters

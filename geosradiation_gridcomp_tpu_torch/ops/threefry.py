@@ -46,7 +46,7 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def key(seed=0, device=None):
+def key(seed=0, device="cuda"):
     """jax.random.key(seed) for 0 <= seed < 2**32: the pair (0, seed)."""
     z = torch.zeros((), dtype=torch.int64, device=device)
     return torch.stack([z, z + seed])

@@ -11,7 +11,9 @@ import torch
 from .driver.radiation import AtmosInputs
 
 
-def example_inputs(ncol=32, nlev=72, seed=0, device=None):
+def example_inputs(ncol=32, nlev=72, seed=0, device="cuda"):
+    """The scene as AtmosInputs on device (the card unless the caller
+    passes device="cpu")."""
     rng = np.random.default_rng(seed)
     ptop = 1.0
     # per-column surface pressure: the McICA seeds derive from the

@@ -27,7 +27,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 #define __shared__ static
 
@@ -37,6 +37,12 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
+struct float4 {
+    float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+    return {x, y, z, w};
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -71,6 +77,7 @@ inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdividef(float a, float b) { return a / b; }
 
 template <typename K>
 struct EmuLaunch {

@@ -39,7 +39,7 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc_cuda import \
     spcvmc_fast
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
-    NGS_LW, PARTS, VARIANTS, taumol_lw)
+    NGS_LW, PARTS, VARIANTS, _cells, taumol_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import (
     taumol_lw_bisect, taumol_lw_fast)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
@@ -128,6 +128,33 @@ def test_k3_matches_plain(case, dev, with_taua):
             assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 1
 
 
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (203,), (6881,),
+                                   (37, 72), (65, 3)], ids=str)
+@pytest.mark.parametrize("with_taua", [False, True])
+def test_k3_ragged_tiles(case, dev, shape, with_taua):
+    """Cell arrays whose last tile of 32 columns is part full; P3's full
+    variant equal to K3 on them."""
+    n = 1
+    for d in shape:
+        n *= d
+    flat = _cells(case["coefs"], case["coefs"].jp.shape, slice(9, 9 + n))
+    coefs = type(flat)(*(x.reshape(shape + x.shape[1:])
+                         if x.shape[:1] == (n,) else x for x in flat))
+    taua = (torch.rand(shape + (16,), device=dev) * 0.02 if with_taua
+            else None)
+    tabs = case["lw"].taumol_tables
+    a = taumol_lw_fast(coefs, tabs, taua)
+    b = taumol_lw(coefs, tabs, taua)
+    for x, y in zip(a, b):
+        assert x.shape == shape + (140,)
+        for i in range(16):
+            sl = slice(NGS_LW[i], NGS_LW[i + 1])
+            assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 1
+    if not with_taua:
+        for x, y in zip(taumol_lw_bisect(coefs, tabs, PARTS), a):
+            assert torch.equal(x, y)
+
+
 def test_k4_matches_plain(case):
     c = case["coefs"]
     tau, cloudy, _ = mcica_optics_lw_plain(*case["k1"], cloud_mh=30,
@@ -196,6 +223,32 @@ def test_k6_matches_plain(case, dev, aerosol, ncld):
     assert set(a) == set(b)
     for k in b:
         assert relmax(a[k], b[k]) <= 5e-4, k
+
+
+@pytest.mark.parametrize("ncld", [0, 2, NCOL])
+@pytest.mark.parametrize("aerosol", [False, True])
+def test_k6_ncld(case, dev, aerosol, ncld):
+    """K6 with no, some and every column cloudy: within 5e-4 of its twin,
+    deterministic over two runs."""
+    tau, ssa, asm, cldy, _ = mcica_optics_sw_plain(
+        *case["k2"], case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+    tg, tr = taumol_sw(case["swcoefs"], case["sw"].taumol_tables)
+    gen = torch.Generator(dev).manual_seed(7)
+    rnd = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        *shape, device=dev, generator=gen)
+    aero = dict(taua=rnd(0.0, 0.1, NCOL, NLEV, 14),
+                ssaa=rnd(0.8, 1.0, NCOL, NLEV, 14),
+                asya=rnd(0.5, 0.8, NCOL, NLEV, 14)) if aerosol else {}
+    args = (case["swcoefs"], tg, tr, rnd(0.1, 20.0, NCOL, 112),
+            rnd(-0.2, 1.0, NCOL), rnd(0.05, 0.3, NCOL, 14),
+            rnd(0.05, 0.3, NCOL, 14), cldy, tau, ssa, asm)
+    a = spcvmc_fast(*args, **aero, ncld=ncld)
+    b = spcvmc_sw(*args, **aero, ncld=ncld)
+    for k in b:
+        assert relmax(a[k], b[k]) <= 5e-4, k
+    again = spcvmc_fast(*args, **aero, ncld=ncld)
+    for k in a:
+        assert torch.equal(again[k], a[k]), k
 
 
 def test_step_runs_the_kernels(case):

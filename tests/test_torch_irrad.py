@@ -4,6 +4,7 @@ field and every export <= 5e-5 relmax (max|a-b| / max|b|, the LW
 end-to-end gate of tools/verify_tpu.py:243).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -15,6 +16,8 @@ import torch
 
 from geosradiation_gridcomp_tpu.config import RadiationConfig, Scheme
 from geosradiation_gridcomp_tpu.driver import radiation as jrad
+from geosradiation_gridcomp_tpu_torch.config import RadiationConfig as TConfig
+from geosradiation_gridcomp_tpu_torch.config import Scheme as TScheme
 from geosradiation_gridcomp_tpu_torch.driver import radiation as trad
 from geosradiation_gridcomp_tpu_torch.driver.state import IrradState
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import RRTMGLW
@@ -32,6 +35,13 @@ CFG_NA = RadiationConfig(outputs=frozenset(
     {"olrb", "tbrb", "clear_counts", "no_aerosol"}))
 
 
+def port_config(c):
+    """The port's RadiationConfig with the fields of the reference's c."""
+    return TConfig(**{f.name: TScheme(v.value) if isinstance(v, Scheme)
+                      else v for f in dataclasses.fields(c)
+                      for v in (getattr(c, f.name),)})
+
+
 def relmax(a, b, floor=1e-6):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), floor))
@@ -47,18 +57,18 @@ def runs():
     """JAX and port refreshes: default config, and aerosol with the
     no-aerosol second pass."""
     ji = _example_inputs(NCOL, NLEV)
-    ti = example_inputs(NCOL, NLEV)
+    ti = example_inputs(NCOL, NLEV, device="cpu")
     cfg = RadiationConfig()
     pmid = 0.5 * (np.asarray(ji.ple)[0, 1:] + np.asarray(ji.ple)[0, :-1])
     ict, icb = cfg.superlayer_indices(pmid)
-    lw = RRTMGLW.from_reference_tables()
+    lw = RRTMGLW.from_reference_tables("cpu")
     taua = _taua()
     out = {}
     for name, c, ta in (("default", cfg, None), ("aerosol", CFG_NA, taua)):
         js = jrad.irrad_refresh(ji, DOY, c, ict, icb,
                                 taua=None if ta is None else jnp.asarray(ta))
         ts = trad.irrad_refresh(
-            ti, DOY, c, ict, icb, lw=lw,
+            ti, DOY, port_config(c), ict, icb, lw=lw,
             taua=None if ta is None else torch.as_tensor(ta))
         out[name] = (js, ts, c)
     return ji, ti, out
@@ -101,7 +111,7 @@ def test_irrad_update_and_linearization(runs, name):
     ji, ti, out = runs
     js, ts, cfg = out[name]
     ju = jrad.irrad_update(js, ji.tsinst + 0.5, cfg)
-    tu = trad.irrad_update(ts, ti.tsinst + 0.5, cfg)
+    tu = trad.irrad_update(ts, ti.tsinst + 0.5, port_config(cfg))
     assert set(tu) == set(ju)
     for k in ju:
         assert relmax(tu[k].numpy(), np.asarray(ju[k])) <= 5e-5, k
@@ -137,11 +147,11 @@ def test_physical_fluxes(runs):
     assert all(torch.isfinite(x).all() for x in ts)
 
 
-@pytest.mark.parametrize("scheme", [Scheme.CHOU, Scheme.RRTMGP])
+@pytest.mark.parametrize("scheme", [TScheme.CHOU, TScheme.RRTMGP])
 def test_unported_schemes_raise(scheme):
-    ti = example_inputs(2, 10)
+    ti = example_inputs(2, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trad.irrad_refresh(ti, DOY, RadiationConfig(lw_scheme=scheme), 3, 6)
+        trad.irrad_refresh(ti, DOY, TConfig(lw_scheme=scheme), 3, 6)
 
 
 def test_port_never_imports_jax():

@@ -50,7 +50,7 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
     setcoef_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
-    PARTS, VARIANTS, taumol_lw)
+    PARTS, VARIANTS, _cells, taumol_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import taumol_sw
 from geosradiation_gridcomp_tpu_torch.ops import (ffill_cuda, gather_cuda,
                                                   mcica, mcica_cuda)
@@ -80,7 +80,7 @@ def lib(tmp_path_factory):
         text = open(src).read().replace(
             "extern __shared__ __align__(16) unsigned char dyn_smem[];",
             "unsigned char* dyn_smem = emu_dyn_smem;")
-        text = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(",
+        text = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(",
                       r"emu_launch(\1, \2)(", text, flags=re.S)
         (out / os.path.basename(src)).write_text(text)
     so = out / "libemu.so"
@@ -94,7 +94,7 @@ def lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def case():
-    inp = example_inputs(NCOL, NLEV, seed=4)
+    inp = example_inputs(NCOL, NLEV, seed=4, device="cpu")
     # three cloudy columns, with cloud on both sides of the super-layer
     # boundaries (MH, LM), and one column clear everywhere
     fcld = inp.fcld.clone()
@@ -104,7 +104,7 @@ def case():
     fcld[3] = 0.0
     ql = torch.where(fcld > 0, torch.clamp(inp.ql, min=5e-5), inp.ql)
     inp = inp._replace(fcld=fcld, ql=ql)
-    lw = lwm.RRTMGLW.from_reference_tables()
+    lw = lwm.RRTMGLW.from_reference_tables("cpu")
     play, h2o, o3 = rad._common_derived(inp)
     zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
     ciwp, clwp = rad._incloud_paths(inp)
@@ -147,6 +147,32 @@ def test_k3_emulated_matches_plain(lib, case, with_taua):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
 
 
+def _cell_block(coefs, start, shape):
+    """The fields of coefs at the flat cells start.. as an array of cells
+    of the given shape (columns x layers, or a flat cell axis)."""
+    n = int(np.prod(shape))
+    flat = _cells(coefs, coefs.jp.shape, slice(start, start + n))
+    return type(coefs)(*(x.reshape(shape + x.shape[1:])
+                         if x.shape[:1] == (n,) else x for x in flat))
+
+
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (203,), (37, 3),
+                                   (65, 2)], ids=str)
+@pytest.mark.parametrize("with_taua", [False, True])
+def test_k3_emulated_ragged_tiles(lib, case, shape, with_taua):
+    """Cell arrays whose last tile of 32 columns is part full."""
+    coefs = _cell_block(case["coefs"], 7, shape)
+    rng = np.random.default_rng(len(shape))
+    taua = (torch.as_tensor(rng.uniform(0, 0.02, shape + (16,))
+                            .astype(np.float32)) if with_taua else None)
+    tabs = case["lw"].taumol_tables
+    a = taumol_lw_cuda.launch(lib, coefs, tabs, taua)
+    b = taumol_lw(coefs, tabs, taua)
+    for x, y in zip(a, b):
+        assert x.shape == shape + (140,)
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
+
+
 def test_k4_emulated_matches_plain(lib, case):
     c = case["coefs"]
     tau, cloudy, _ = mcica_cuda.mcica_optics_lw_plain(
@@ -166,7 +192,7 @@ def sw_case(case):
     """The SW kernels' inputs on the same scene: K2's with the SW seed
     order, setcoef_sw, and K6's optics from the plain twins."""
     inp = case["inp"]
-    sw = swm.RRTMGSW.from_reference_tables()
+    sw = swm.RRTMGSW.from_reference_tables("cpu")
     play, h2o, o3 = rad._common_derived(inp)
     zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
     ciwp, clwp = rad._incloud_paths(inp)
@@ -203,8 +229,7 @@ def test_k5_emulated_matches_plain(lib, sw_case):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
 
 
-@pytest.mark.parametrize("aerosol,ncld", [(False, None), (True, 2)])
-def test_k6_emulated_matches_plain(lib, sw_case, aerosol, ncld):
+def _k6_args(sw_case, aerosol):
     tau, ssa, asm, cldy, _ = mcica_cuda.mcica_optics_sw_plain(
         *sw_case["k2"], sw_case["sw"].zcw_cols(1), cloud_mh=MH, cloud_lm=LM)
     tg, tr = taumol_sw(sw_case["coefs"], sw_case["sw"].taumol_tables)
@@ -213,14 +238,37 @@ def test_k6_emulated_matches_plain(lib, sw_case, aerosol, ncld):
         rng.uniform(lo, hi, shape).astype(np.float32))
     aero = ((f(0.0, 0.1, (NCOL, NLEV, 14)), f(0.8, 1.0, (NCOL, NLEV, 14)),
              f(0.5, 0.8, (NCOL, NLEV, 14))) if aerosol else (None,) * 3)
-    args = (tg, tr, f(0.1, 20.0, (NCOL, 112)),
+    return (tg, tr, f(0.1, 20.0, (NCOL, 112)),
             torch.tensor([0.7, 0.3, 1e-5, 0.95]), f(0.05, 0.3, (NCOL, 14)),
             f(0.05, 0.3, (NCOL, 14)), cldy, tau, ssa, asm, *aero)
+
+
+@pytest.mark.parametrize("aerosol,ncld", [(False, None), (True, 2)])
+def test_k6_emulated_matches_plain(lib, sw_case, aerosol, ncld):
+    args = _k6_args(sw_case, aerosol)
     a = spcvmc_cuda.launch(lib, *args, adjflux=1.02, ncld=ncld)
     b = spcvmc_sw(None, *args, adjflux=1.02, ncld=ncld)
     assert set(a) == set(b)
     for k in b:
         assert relmax(a[k], b[k]) <= 1e-5, k
+
+
+@pytest.mark.parametrize("ncld", [0, 2, NCOL])
+@pytest.mark.parametrize("aerosol", [False, True])
+def test_k6_emulated_ncld(lib, sw_case, aerosol, ncld):
+    """K6 with no, some and every column cloudy: within 1e-5 of the twin,
+    and a second run equal bit for bit."""
+    args = _k6_args(sw_case, aerosol)
+    b = spcvmc_sw(None, *args, adjflux=1.02, ncld=ncld)
+    a = spcvmc_cuda.launch(lib, *args, adjflux=1.02, ncld=ncld)
+    again = spcvmc_cuda.launch(lib, *args, adjflux=1.02, ncld=ncld)
+    assert all(torch.equal(again[k], a[k]) for k in a)
+    for k in b:
+        assert relmax(a[k], b[k]) <= 1e-5, k
+    if ncld == 0:
+        for clear, full in (("bbcu", "bbfu"), ("bbcd", "bbfd"),
+                            ("nicd", "nifd")):
+            assert torch.equal(a[clear], a[full])
 
 
 def test_k7_emulated_equals_plain(lib, case):
@@ -259,6 +307,16 @@ def test_p3_full_emulated_equals_k3(lib, case):
     tabs = case["lw"].taumol_tables
     a = taumol_lw_cuda.launch_bisect(lib, case["coefs"], tabs, PARTS)
     b = taumol_lw_cuda.launch(lib, case["coefs"], tabs)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(31,), (203,), (37, 3)], ids=str)
+def test_p3_full_emulated_equals_k3_ragged(lib, case, shape):
+    coefs = _cell_block(case["coefs"], 40, shape)
+    tabs = case["lw"].taumol_tables
+    a = taumol_lw_cuda.launch_bisect(lib, coefs, tabs, PARTS)
+    b = taumol_lw_cuda.launch(lib, coefs, tabs)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

@@ -65,7 +65,7 @@ def t(x):
 
 @pytest.fixture(scope="module")
 def lw():
-    return tlw.RRTMGLW.from_reference_tables()
+    return tlw.RRTMGLW.from_reference_tables("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +179,7 @@ def test_band_abs_coeffs(iceflag):
     rei = rng.uniform(5.0, 120.0, (4, 30)).astype(np.float32)
     rel = rng.uniform(2.5, 50.0, (4, 30)).astype(np.float32)
     ja, jl = j_band_abs(jnp.asarray(rei), jnp.asarray(rel), iceflag=iceflag)
-    ta, tl = band_abs_coeffs_lw(t(rei), t(rel), lw_cloud_tables(),
+    ta, tl = band_abs_coeffs_lw(t(rei), t(rel), lw_cloud_tables("cpu"),
                                 iceflag=iceflag)
     assert relmax(ta, ja) <= 1e-6
     assert relmax(tl, jl) <= 1e-6

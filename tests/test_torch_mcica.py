@@ -123,14 +123,14 @@ def test_cldprmc_lw(scene):
     j, tt = scene
     cldy, ciwp_s, clwp_s = (t(x) for x in j["clouds"])
     taucmc, cloudy = cldprmc_lw(cldy, ciwp_s, clwp_s, tt["ri"], tt["rl"],
-                                lw_cloud_tables())
+                                lw_cloud_tables("cpu"))
     np.testing.assert_array_equal(cloudy.numpy(), j["cloudy"])
     assert relmax(taucmc.transpose(-1, -2), j["taucmc"]) <= 1e-6
 
 
 def _k1_args(tt):
     alpha, rcorr = tm.overlap_params(tt["zm"], tt["lats"], DOY)
-    absi, absl = band_abs_coeffs_lw(tt["ri"], tt["rl"], lw_cloud_tables())
+    absi, absl = band_abs_coeffs_lw(tt["ri"], tt["rl"], lw_cloud_tables("cpu"))
     return (tm.subcolumn_keys(tt["play"]), alpha, rcorr, tt["fcld"],
             tt["ciwp"], tt["clwp"], tm._sigma_class(tt["fcld"]),
             absi.contiguous(), absl.contiguous(),

@@ -28,7 +28,8 @@ from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
 from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
     gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
 from geosradiation_gridcomp_tpu_torch.tools.profiling import (
-    fused_mcica_check, gather_micro, taumol_lw_bisect as bisect_tool)
+    fused_mcica_check, gather_micro, kernel_ab, kernel_resources,
+    taumol_lw_bisect as bisect_tool)
 
 torch.set_num_threads(1)
 
@@ -124,3 +125,90 @@ def test_profiling_entry_points_need_a_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tool.main([])
+
+
+SASS = """
+\t\tFunction : _Z6kernelPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                /* 0x00000a0000017a02 */
+        /*0010*/                   MUFU.EX2 R2, R3 ;                     /* 0x0000000300027308 */
+        /*0020*/                   FADD R4, R2, R2 ;                     /* 0x0000000202047221 */
+        /*0030*/                   MUFU.RCP R5, R4 ;                     /* 0x0000000400057308 */
+        /*0040*/               @P0 BRA 0x20 ;                            /* 0xfffffffc00000947 */
+        /*0050*/              @!P1 BRA 0x70 ;                            /* 0x0000000000109947 */
+        /*0060*/                   BRA 0x10 ;                            /* 0xfffffffc00007947 */
+        /*0070*/                   EXIT ;                                /* 0x000000000000794d */
+\t\tFunction : _Z5otherv
+        /*0000*/                   EXIT ;                                /* 0x000000000000794d */
+"""
+
+
+def test_kernel_resources_counts_sass_loops():
+    """Each kernel's instructions and MUFU, and each backward branch's
+    body (a forward branch is no loop)."""
+    funcs = kernel_resources.sass_functions(SASS)
+    assert list(funcs) == ["_Z6kernelPf", "_Z5otherv"]
+    s = kernel_resources.summary(funcs["_Z6kernelPf"])
+    assert (s["insns"], s["mufu"]) == (8, 2)
+    pipes = lambda **kw: {c: kw.get(c, 0)
+                          for c in kernel_resources.PIPE_CLASSES}
+    assert s["loops"] == [
+        dict(start="0x10", end="0x60", insns=6, mufu=2,
+             pipes=pipes(mufu=2, fp32=1, ctrl=3)),
+        dict(start="0x20", end="0x40", insns=3, mufu=1,
+             pipes=pipes(mufu=1, fp32=1, ctrl=1))]
+    assert kernel_resources.summary(funcs["_Z5otherv"]) == dict(
+        insns=1, mufu=0, loops=[])
+
+
+@pytest.mark.parametrize("insn,cls", [
+    ("IADD3 R4, R2, R5, RZ", "alu"), ("LOP3.LUT R2, R3, R4, R5, 0x96, !PT",
+                                      "alu"),
+    ("SHF.L.W.U32.HI R3, R3, 0xd, R3", "alu"), ("@P0 ISETP.GE.AND P1, PT, "
+                                                 "R2, R3, PT", "alu"),
+    ("IMAD.IADD R4, R2, 0x1, R5", "imad"), ("IMAD.MOV.U32 R1, RZ, RZ, R2",
+                                            "imad"),
+    ("FFMA R4, R2, R3, R5", "fp32"), ("FADD R2, R2, -1", "fp32"),
+    ("MUFU.RCP R5, R4", "mufu"), ("LDG.E R2, desc[UR4][R2.64]", "mem"),
+    ("STS [R3], R2", "mem"), ("@!P1 BRA 0x70", "ctrl"), ("EXIT", "ctrl"),
+    ("UIADD3 UR4, UR4, 0x1, URZ", "uniform")], ids=lambda x: str(x)[:12])
+def test_kernel_resources_pipe_class(insn, cls):
+    assert kernel_resources.pipe_class(insn) == cls
+
+
+def test_kernel_ab_tensors_flattens_outputs():
+    a, b, c = torch.zeros(2), torch.ones(3), torch.arange(4)
+    assert [t.numel() for t in kernel_ab.tensors(
+        {"y": (b, c), "x": a, "n": None})] == [2, 3, 4]
+    assert kernel_ab.tensors(a)[0] is a
+
+
+def test_kernel_ab_recording_keeps_each_step_kernels_first_call():
+    """recording() sees every step kernel of a CPU refresh with its
+    arguments, the twins reproduce the recorded wrappers there, and the
+    scheme modules get their wrappers back after the block."""
+    from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
+    from geosradiation_gridcomp_tpu_torch.driver import step
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw, sw
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+
+    inp = example_inputs(4, NLAY, seed=0, device="cpu")
+    cfg = RadiationConfig()
+    nlit, ncld = step.sw_partition_bounds(inp.lons, inp.lats, inp.fcld,
+                                          172.0, 12.0, cfg, bucket=2)
+    before = {(m, a): getattr(dict(lw=lw, sw=sw)[m], a)
+              for m, a, _ in kernel_ab.STEP_KERNELS.values()}
+    with kernel_ab.recording() as calls:
+        step.radiation_refresh(
+            inp, 172.0, 12.0, config=cfg, ict=69, icb=71, sw_nlit=nlit,
+            sw_ncld=ncld, sw=sw.RRTMGSW.from_reference_tables("cpu"),
+            lw=lw.RRTMGLW.from_reference_tables("cpu"))
+    assert set(calls) == set(kernel_ab.STEP_KERNELS)
+    assert calls["spcvmc"][2].get("ncld") == ncld
+    for name, (fn, args, kw) in calls.items():
+        got = kernel_ab.tensors(fn(*args, **kw))
+        want = kernel_ab.tensors(kernel_ab.plain_twin(name)(*args, **kw))
+        assert len(got) == len(want) > 0, name
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), name
+    for (m, a), fn in before.items():
+        assert getattr(dict(lw=lw, sw=sw)[m], a) is fn

@@ -13,6 +13,7 @@ the fluxes' ~1.5e-6 roundoff: below 100 hPa they agree to 6.4e-5
 few-Pa layers near the model top are checked for finiteness only.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -24,6 +25,8 @@ import torch
 from geosradiation_gridcomp_tpu.config import RadiationConfig, Scheme
 from geosradiation_gridcomp_tpu.driver import astronomy as jast
 from geosradiation_gridcomp_tpu.driver import step as jstep
+from geosradiation_gridcomp_tpu_torch.config import RadiationConfig as TConfig
+from geosradiation_gridcomp_tpu_torch.config import Scheme as TScheme
 from geosradiation_gridcomp_tpu_torch.driver import astronomy as tast
 from geosradiation_gridcomp_tpu_torch.driver import radiation as trad
 from geosradiation_gridcomp_tpu_torch.driver import step as tstep
@@ -43,6 +46,14 @@ NCOL, NLEV, DOY, UTC = 8, 72, 172.0, 12.0
 CFG = RadiationConfig()
 CFG_NA = RadiationConfig(outputs=frozenset(
     {"olrb", "tbrb", "band_sfc", "clear_counts", "no_aerosol"}))
+T_CFG = TConfig()
+
+
+def port_config(c):
+    """The port's RadiationConfig with the fields of the reference's c."""
+    return TConfig(**{f.name: TScheme(v.value) if isinstance(v, Scheme)
+                      else v for f in dataclasses.fields(c)
+                      for v in (getattr(c, f.name),)})
 
 
 def relmax(a, b, floor=1e-6):
@@ -62,13 +73,13 @@ def _aerosol():
 def runs():
     """(oracle, port) refresh states and updates of both runs."""
     ji = _example_inputs(NCOL, NLEV)
-    ti = example_inputs(NCOL, NLEV)
+    ti = example_inputs(NCOL, NLEV, device="cpu")
     pmid = 0.5 * (np.asarray(ji.ple)[0, 1:] + np.asarray(ji.ple)[0, :-1])
     ict, icb = CFG.superlayer_indices(pmid)
     bounds = tstep.sw_partition_bounds(ti.lons, ti.lats, ti.fcld, DOY, UTC,
-                                       CFG, bucket=1)
-    mods = dict(sw=RRTMGSW.from_reference_tables(),
-                lw=RRTMGLW.from_reference_tables())
+                                       T_CFG, bucket=1)
+    mods = dict(sw=RRTMGSW.from_reference_tables("cpu"),
+                lw=RRTMGLW.from_reference_tables("cpu"))
     sw_aero, lw_aero = _aerosol()
     out = {}
     for name, cfg, kw in (
@@ -82,12 +93,13 @@ def runs():
                for k, v in kw.items()}
         js = jstep.radiation_refresh(ji, DOY, UTC, config=cfg, ict=ict,
                                      icb=icb, **jkw)
-        ts = tstep.radiation_refresh(ti, DOY, UTC, config=cfg, ict=ict,
-                                     icb=icb, **tkw, **mods)
+        ts = tstep.radiation_refresh(ti, DOY, UTC, config=port_config(cfg),
+                                     ict=ict, icb=icb, **tkw, **mods)
         upd = [step.radiation_update(*st, inp.tsinst + 0.5, inp.lons,
                                      inp.lats, inp.ple, DOY, UTC + 0.25,
-                                     config=cfg)
-               for step, st, inp in ((jstep, js, ji), (tstep, ts, ti))]
+                                     config=c)
+               for step, st, inp, c in ((jstep, js, ji, cfg),
+                                        (tstep, ts, ti, port_config(cfg)))]
         out[name] = (js, ts, upd)
     return ji, ti, bounds, out
 
@@ -98,10 +110,10 @@ def test_partition_bounds(runs):
     for bucket in (1, 2, 256):
         for utc in (0.0, 12.0):
             assert tstep.sw_partition_bounds(
-                ti.lons, ti.lats, ti.fcld, DOY, utc, CFG, bucket=bucket) \
+                ti.lons, ti.lats, ti.fcld, DOY, utc, T_CFG, bucket=bucket) \
                 == jstep.sw_partition_bounds(
                     ji.lons, ji.lats, ji.fcld, DOY, utc, CFG, bucket=bucket)
-            assert tstep.lit_column_bound(ti.lons, ti.lats, DOY, utc, CFG,
+            assert tstep.lit_column_bound(ti.lons, ti.lats, DOY, utc, T_CFG,
                                           bucket=bucket) \
                 == jstep.lit_column_bound(ji.lons, ji.lats, DOY, utc, CFG,
                                           bucket=bucket)
@@ -191,9 +203,9 @@ def test_physical_fluxes(runs):
     assert all(torch.isfinite(x).all() for x in (*ts[0], *ts[1]))
 
 
-@pytest.mark.parametrize("scheme", [Scheme.CHOU, Scheme.RRTMGP])
+@pytest.mark.parametrize("scheme", [TScheme.CHOU, TScheme.RRTMGP])
 def test_unported_sw_schemes_raise(scheme):
-    ti = example_inputs(2, 10)
+    ti = example_inputs(2, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trad.solar_refresh(ti, torch.full((2,), 0.5), DOY,
-                           RadiationConfig(sw_scheme=scheme), 3, 6)
+                           TConfig(sw_scheme=scheme), 3, 6)

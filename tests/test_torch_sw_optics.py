@@ -67,7 +67,7 @@ def t(x):
 
 @pytest.fixture(scope="module")
 def sw():
-    return RRTMGSW.from_reference_tables()
+    return RRTMGSW.from_reference_tables("cpu")
 
 
 @pytest.fixture(scope="module")

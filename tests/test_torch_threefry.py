@@ -32,7 +32,7 @@ def _jkey(words):
                                   (4294967295, 1, 77, 3000000000)])
 def test_fold_in_split_uniform_exact(data):
     jk = jax.random.key(0)
-    tk = tf.key(0)
+    tk = tf.key(0, device="cpu")
     for d in data:
         jk = jax.random.fold_in(jk, jnp.uint32(d))
         tk = tf.fold_in(tk, torch.tensor(d, dtype=torch.int64))
@@ -58,7 +58,7 @@ def test_uniform_batched_keys_exact():
 
 def test_scene_matches_reference_scene():
     ji = _example_inputs(16, 72, seed=3)
-    ti = example_inputs(16, 72, seed=3)
+    ti = example_inputs(16, 72, seed=3, device="cpu")
     assert ti._fields == ji._fields
     for f in ji._fields:
         a, b = np.asarray(getattr(ji, f)), getattr(ti, f).numpy()
@@ -68,7 +68,7 @@ def test_scene_matches_reference_scene():
 @pytest.mark.parametrize("seed_order", [(0, 1, 2, 3), (3, 2, 1, 0)])
 def test_state_seeds_exact(seed_order):
     ji = _example_inputs(16, 72)
-    ti = example_inputs(16, 72)
+    ti = example_inputs(16, 72, device="cpu")
     jplay = jrad._common_derived(ji)[0]
     tplay = trad._common_derived(ti)[0]
     assert np.asarray(jplay).tobytes() == tplay.numpy().tobytes()
