@@ -24,12 +24,16 @@ nvcc per source side by side, then:
    same inputs on the card (K1, K2: cloudy masks and clear counts
    identical, cloud optics relmax <= 1e-5; K3, K5 relmax <= 5e-4 in every
    band, K3 also with an aerosol depth; K4 relmax <= 5e-4 for every
-   output; K6 likewise, also with aerosol and with ncld 512, and equal to
-   itself over two runs), with both times (CUDA events) and the kernel's
-   bound: bytes over the memory rate, or the work, whichever is larger;
+   output and equal to itself over two runs; K6 likewise, also with
+   aerosol and with ncld 512), with both times (CUDA events) and the
+   kernel's bound: bytes over the memory rate, or the work, whichever is
+   larger;
    the work is operations over the FP32 peak, and for the threefry draws
    of K1, K2 and K7 the SASS instructions of one draw as nvcc compiles it
-   in this run, over the rates of the SM's pipes;
+   in this run, over the rates of the SM's pipes; then K4, K5 and K6's
+   wrappers once more on those inputs under
+   torch.cuda.set_sync_debug_mode("error"), where any call that
+   synchronises the stream (a copy from host memory) raises;
 3. kernel phases of the verification and profiling kernels at the sizes
    their paths give them, each against its plain twin on the same inputs,
    with both times and the bound: K7 at 512 x 72 and P1 on [1024, 72, 140]
@@ -210,11 +214,11 @@ def mcica_bound(args, kw, out, ng, draw):
 
 
 def taumol_bound(coefs, fields, tabs, ng, ops, out, taua=None):
-    """K3, K5, P3: the per-cell planes the kernel reads, the tables, the
-    outputs."""
-    ncells = coefs.jp.numel()
-    return bound(ncells * 4 * len(fields) + nbytes(tabs.pack, taua, out),
-                 fp_ops=ncells * ng * ops)
+    """K3, K5, P3: the per-cell fields the kernel reads (as the caller
+    holds them), the tables, the outputs."""
+    return bound(nbytes([getattr(coefs, k) for k in fields], tabs.pack, taua,
+                        out),
+                 fp_ops=coefs.jp.numel() * ng * ops)
 
 
 def spcvmc_bound(args, kw, out):
@@ -299,6 +303,9 @@ def step_kernel_phases(torch, dev, calls, draw):
     out_k, out_p = fn(*args, **kw), rtrnmc(*args, **kw)
     for k in out_p:
         gate(f"{k} relmax", relmax(out_k[k], out_p[k]), 5e-4)
+    again = fn(*args, **kw)
+    gate("run-to-run mismatches",
+         float(sum(int((out_k[k] != again[k]).sum()) for k in out_k)), 0)
     timed("rtrnmc", fn, rtrnmc, args, kw,
           max(max_abs(out_k[k], out_p[k]) for k in out_p),
           bound(nbytes(args, out_k),
@@ -337,6 +344,22 @@ def step_kernel_phases(torch, dev, calls, draw):
          float(sum(int((a[k] != again[k]).sum()) for k in a)), 0)
     timed("spcvmc", fn, spcvmc_sw, args, kw, err, spcvmc_bound(args, kw, a))
     return results
+
+
+def sync_free_phase(torch, calls):
+    """K4, K5 and K6's wrappers on the refresh's inputs under
+    set_sync_debug_mode("error"): a wrapper that synchronises the stream
+    (a copy from host memory, a read of a device value) fails."""
+    from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import \
+        sync_free
+
+    print("sync-free wrappers, set_sync_debug_mode('error'):")
+    for name in ("rtrnmc", "taumol_sw", "spcvmc"):
+        fn, args, kw = calls[name]
+        res = sync_free(torch, lambda: fn(*args, **kw))
+        print(f"  {name:36s} {'PASS' if res is True else res}")
+        if res is not True:
+            raise AssertionError(f"{name}: {res}")
 
 
 def raw_and_profiling_kernel_phases(torch, dev, draw):
@@ -761,6 +784,7 @@ def main():
     dev = torch.device("cuda", 0)
     launches, step, calls = step_phase(torch, dev)
     results = step_kernel_phases(torch, dev, calls, draw)
+    sync_free_phase(torch, calls)
     del calls
     results.update(raw_and_profiling_kernel_phases(torch, dev, draw))
     if args.profile:

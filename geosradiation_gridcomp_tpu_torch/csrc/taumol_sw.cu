@@ -12,14 +12,26 @@
 // plain PyTorch (models/rrtmg/taumol_sw.py:sfluxzen_only), as in the TPU
 // wrapper.
 //
-// Bound on the H100: table gathers (up to 8 per (cell, g-point) from ~0.5 MB
-// of k-tables that stay in L2), and writing taug and taur (530 MB at
-// 8192 x 72 x 112). Design: one thread per (cell, band), blockIdx.y = band,
-// so a warp never diverges over bands; the thread evaluates its cell's
-// lower- or upper-atmosphere formula once (eta indices and weights) and
-// loops over the band's g-points. The k-tables are one packed float32
-// vector; a per-band row says where each table starts (-1 if absent) and a
-// second one how many rows it has.
+// Bound on the H100: writing taug and taur (2 x 448 B per cell, 248 MB at
+// 3840 x 72) and the table gathers (4 to 8 rows per (cell, g-point) from
+// ~0.4 MB of k-tables). Design (K3's, csrc/taumol_lw.cuh): one block takes
+// a tile of TILE columns at one layer, lane = column, because cells at one
+// layer of neighbouring columns share pressure and temperature indices and
+// so gather the same table rows; consecutive blocks take consecutive layers
+// of the same columns. The warps take the 14 bands, one or two each, paired
+// so that their gathers are near equal (warp_band), and a warp never
+// diverges over bands. The tile's 20 per-cell fields are read once, in
+// place (the wrapper passes a pointer per field, by value), into shared
+// memory (the 32 columns of a tile lie nlay cells apart, so a warp's load
+// of one field touches 32 sectors; the blocks of the neighbouring layers
+// use the rest of them from L2); each thread evaluates its (cell, band) into the tile's rows of
+// taug and taur in shared memory (ROW = 113: a row of 112 g-points padded by
+// one float, so the 32 lanes writing one g-point land on 32 distinct banks);
+// then the block writes each cell's two rows of 448 bytes (whole 32-byte
+// sectors) as coalesced 16-byte stores. Four blocks fit an SM (at most 64
+// registers a thread, 31 KB of shared memory a block). The k-tables are
+// one packed float32 vector; a per-band row says where each table starts
+// (-1 if absent) and a second one how many rows it has.
 
 #include "common.cuh"
 
@@ -28,7 +40,10 @@ namespace {
 using namespace geosrad;
 
 constexpr float ONEMINUS = static_cast<float>(1.0 - 1.0e-6);
-constexpr int BLOCK = 128;
+constexpr int TILE = 32;
+constexpr int NWARP = 8;
+constexpr int BLOCK = NWARP * 32;
+constexpr int ROW = NGPT_SW + 1;
 
 // per-band table slots (BAND_KEYS in models/rrtmg/taumol_sw.py)
 enum Key {
@@ -40,8 +55,21 @@ enum FField {
     FAC00, FAC01, FAC10, FAC11, SELFFAC, SELFFRAC, FORFAC, FORFRAC, COLH2O,
     COLCO2, COLO3, COLCH4, COLO2, COLMOL, NFF
 };
-// per-cell int planes (INT_FIELDS)
+// per-cell int fields (INT_FIELDS)
 enum IField { LOWER, JP, JT, JT1, INDSELF, INDFOR, NIF };
+// a cell's fields in shared memory, at odd strides so that the lanes
+// reading one field hit distinct banks
+constexpr int FSTRIDE = NFF + 1;
+constexpr int ISTRIDE = NIF + 1;
+
+// The cells' fields as the wrapper hands them over, in the order of
+// FLOAT_FIELDS + INT_FIELDS: float32, then `lower` as bool bytes, then
+// int32.
+struct Fields {
+    const float* f[NFF];
+    const unsigned char* lower;
+    const int* i[NIF - 1];   // JP .. INDFOR
+};
 
 // key-species ratios strrat (rrtmg_sw_taumol.F90), as the reference's
 // Python floats rounded to float32
@@ -84,8 +112,8 @@ __device__ __forceinline__ Eta eta(float c1, float c2, float strrat,
 }
 
 struct Cell {
-    float f[NFF];
-    int i[NIF];
+    const float* f;      // the cell's fields in shared memory
+    const int* i;
     const float* P;      // packed tables
     const int* ob;       // this band's table offsets [NKEY]
     const int* rows;     // this band's table row counts [NKEY]
@@ -130,36 +158,20 @@ struct Cell {
     }
 };
 
-__global__ void __launch_bounds__(BLOCK)
-taumol_sw_kernel(const float* __restrict__ fplanes,
-                 const int* __restrict__ iplanes,
-                 const float* __restrict__ pack,
-                 const int* __restrict__ offsets,
-                 float* __restrict__ taug, float* __restrict__ taur,
-                 int ncells) {
-    const int cell = blockIdx.x * BLOCK + threadIdx.x;
-    const int bi = blockIdx.y;               // 0..13 = band 16..29
-    if (cell >= ncells) return;
-    Cell c;
-    for (int k = 0; k < NFF; ++k)
-        c.f[k] = fplanes[static_cast<size_t>(k) * ncells + cell];
-    for (int k = 0; k < NIF; ++k)
-        c.i[k] = iplanes[static_cast<size_t>(k) * ncells + cell];
-    c.P = pack;
-    c.ob = offsets + bi * NKEY;
-    c.rows = offsets + NBND_SW * NKEY + bi * NKEY;
-    c.ng = ng_sw(bi);
-
+// Band BI (0-based, band 16 + BI) of one cell, into its rows tg, tr of
+// the band's g-points.
+template <int BI>
+__device__ void run_band(const Cell& c, float* tg, float* tr) {
+    constexpr int band = BI + 16;
+    constexpr int nspa = nspa_sw(BI), nspb = nspb_sw(BI);
     const bool lower = c.i[LOWER] != 0;
     const int jp = c.i[JP], jt = c.i[JT], jt1 = c.i[JT1];
-    const int nspa = nspa_sw(bi), nspb = nspb_sw(bi);
     const int i0b = ((jp - 1) * 5 + (jt - 1)) * nspa;
     const int i1b = (jp * 5 + (jt1 - 1)) * nspa;
     const int u0b = ((jp - 13 > 0 ? jp - 13 : 0) * 5 + (jt - 1)) * nspb;
     const int u1b = ((jp - 12 > 1 ? jp - 12 : 1) * 5 + (jt1 - 1)) * nspb;
     const float h2o = c.f[COLH2O], co2 = c.f[COLCO2], o3 = c.f[COLO3],
                 ch4 = c.f[COLCH4], o2 = c.f[COLO2], colmol = c.f[COLMOL];
-    const int band = bi + 16;
 
     // eta weights of the two-species bands, for this cell's regime
     Eta e{0.0f, 0.0f, 1};
@@ -176,8 +188,6 @@ taumol_sw_kernel(const float* __restrict__ fplanes,
     }
     const float o2cont = 4.35e-4f * o2 / 700.0f;
 
-    float* tg = taug + static_cast<size_t>(cell) * NGPT_SW + ngs_sw(bi);
-    float* tr = taur + static_cast<size_t>(cell) * NGPT_SW + ngs_sw(bi);
     for (int g = 0; g < c.ng; ++g) {
         float t = 0.0f;
         if (lower) {
@@ -255,16 +265,121 @@ taumol_sw_kernel(const float* __restrict__ fplanes,
     }
 }
 
+__device__ void eval_band(int bi, const Cell& c, float* tg, float* tr) {
+    switch (bi) {
+        case 0: run_band<0>(c, tg, tr); break;
+        case 1: run_band<1>(c, tg, tr); break;
+        case 2: run_band<2>(c, tg, tr); break;
+        case 3: run_band<3>(c, tg, tr); break;
+        case 4: run_band<4>(c, tg, tr); break;
+        case 5: run_band<5>(c, tg, tr); break;
+        case 6: run_band<6>(c, tg, tr); break;
+        case 7: run_band<7>(c, tg, tr); break;
+        case 8: run_band<8>(c, tg, tr); break;
+        case 9: run_band<9>(c, tg, tr); break;
+        case 10: run_band<10>(c, tg, tr); break;
+        case 11: run_band<11>(c, tg, tr); break;
+        case 12: run_band<12>(c, tg, tr); break;
+        default: run_band<13>(c, tg, tr); break;
+    }
+}
+
+// Band (0-based, -1 for none) of warp w's first (half 0) or second (half 1)
+// pass. Gathers per cell of each band in the lower atmosphere, g-points x
+// rows per g-point (8 for a two-species key, 4 for one, 2 per continuum, 1
+// per gray term and Rayleigh): 16: 78, 17: 156, 18: 104, 19: 104, 20: 100,
+// 21: 130, 22: 26, 23: 90, 24: 120, 25: 36, 26: 6, 27: 40, 28: 54, 29: 120;
+// the pairs take 156, 130, 146, 126, 144, 140, 154 and 168 of 1,164.
+__device__ __forceinline__ int warp_band(int w, int half) {
+    constexpr int A[NWARP] = {1, 5, 8, 13, 2, 3, 4, 7};
+    constexpr int B[NWARP] = {-1, -1, 6, 10, 11, 9, 12, 0};
+    return half == 0 ? A[w] : B[w];
+}
+
+__global__ void __launch_bounds__(BLOCK, 4)
+taumol_sw_kernel(Fields in, const float* __restrict__ pack,
+                 const int* __restrict__ offsets,
+                 float* __restrict__ taug, float* __restrict__ taur,
+                 int ncol, int nlay) {
+    __shared__ __align__(16) float s_tg[TILE * ROW];
+    __shared__ __align__(16) float s_tr[TILE * ROW];
+    __shared__ float s_f[TILE * FSTRIDE];
+    __shared__ int s_i[TILE * ISTRIDE];
+
+    const int t = threadIdx.x;
+    const int lane = t % 32;
+    const int warp = t / 32;
+    const int lay = blockIdx.x % nlay;
+    const int col0 = blockIdx.x / nlay * TILE;
+    const int n = ncol - col0 < TILE ? ncol - col0 : TILE;
+    // the tile's cell c is (col0 + c, lay)
+    auto cell = [&](int c) {
+        return static_cast<size_t>(col0 + c) * nlay + lay;
+    };
+
+    for (int e = t; e < (NFF + NIF) * TILE; e += BLOCK) {
+        const int k = e / TILE, c = e % TILE;
+        if (c < n) {
+            const size_t x = cell(c);
+            if (k < NFF)
+                s_f[c * FSTRIDE + k] = in.f[k][x];
+            else if (k == NFF)
+                s_i[c * ISTRIDE + LOWER] = in.lower[x];
+            else
+                s_i[c * ISTRIDE + k - NFF] = in.i[k - NFF - 1][x];
+        }
+    }
+    __syncthreads();
+
+    if (lane < n) {
+        Cell c;
+        c.f = s_f + lane * FSTRIDE;
+        c.i = s_i + lane * ISTRIDE;
+        c.P = pack;
+        for (int half = 0; half < 2; ++half) {
+            const int bi = warp_band(warp, half);
+            if (bi < 0) continue;
+            c.ob = offsets + bi * NKEY;
+            c.rows = offsets + NBND_SW * NKEY + bi * NKEY;
+            c.ng = ng_sw(bi);
+            eval_band(bi, c, s_tg + lane * ROW + ngs_sw(bi),
+                      s_tr + lane * ROW + ngs_sw(bi));
+        }
+    }
+    __syncthreads();
+
+    // each cell's row is 112 floats, 28 float4s: thread t stores float4s
+    // t, t + BLOCK, ... of the tile's n rows
+    for (int q = t; q < n * (NGPT_SW / 4); q += BLOCK) {
+        const int c = q / (NGPT_SW / 4), v = q % (NGPT_SW / 4);
+        const int j = c * ROW + 4 * v;
+        const size_t o = cell(c) * NGPT_SW + 4 * v;
+        *reinterpret_cast<float4*>(taug + o) =
+            make_float4(s_tg[j], s_tg[j + 1], s_tg[j + 2], s_tg[j + 3]);
+        *reinterpret_cast<float4*>(taur + o) =
+            make_float4(s_tr[j], s_tr[j + 1], s_tr[j + 2], s_tr[j + 3]);
+    }
+}
+
 }  // namespace
 
-extern "C" int taumol_sw(const float* fplanes, const int* iplanes,
-                         const float* pack, const int* offsets, float* taug,
-                         float* taur, int ncells, int noffsets,
+// fields: a host array of the NFF + NIF field pointers (device memory), in
+// the order of Fields.
+extern "C" int taumol_sw(const void* const* fields, const float* pack,
+                         const int* offsets, float* taug, float* taur,
+                         int nfields, int ncol, int nlay, int noffsets,
                          void* stream) {
-    if (ncells <= 0 || noffsets != 2 * NBND_SW * NKEY)
+    if (nfields != NFF + NIF || ncol <= 0 || nlay <= 0
+        || noffsets != 2 * NBND_SW * NKEY)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((ncells + BLOCK - 1) / BLOCK, NBND_SW);
+    Fields in;
+    for (int k = 0; k < NFF; ++k)
+        in.f[k] = static_cast<const float*>(fields[k]);
+    in.lower = static_cast<const unsigned char*>(fields[NFF]);
+    for (int k = 0; k < NIF - 1; ++k)
+        in.i[k] = static_cast<const int*>(fields[NFF + 1 + k]);
+    const dim3 grid((ncol + TILE - 1) / TILE * nlay);
     taumol_sw_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-        fplanes, iplanes, pack, offsets, taug, taur, ncells);
+        in, pack, offsets, taug, taur, ncol, nlay);
     return static_cast<int>(cudaGetLastError());
 }

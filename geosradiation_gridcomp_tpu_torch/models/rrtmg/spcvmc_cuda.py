@@ -12,6 +12,8 @@ the sweep, so they are deterministic. The all-sky stream honours ncld as
 the oracle does.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -23,6 +25,14 @@ from .spcvmc import (BAND_KEYS, LEVEL_KEYS, NIR_MASK, NIR_SEL, PAR_SEL,
 WEIGHTS = np.stack([UV_MASK, NIR_MASK, NIR_SEL, PAR_SEL, UVR_SEL])
 
 
+@functools.lru_cache(maxsize=None)
+def device_weights(device):
+    """WEIGHTS on `device`, copied from the host once per device: a copy
+    from host memory in every call would synchronise the stream.
+    RRTMGSW fills it when it is built on a card."""
+    return torch.as_tensor(WEIGHTS, device=device)
+
+
 def launch(lib, taug, taur, sfluxzen, mu0, albdir, albdif, cldymc, taucmc,
            ssacmc, asmcmc, taua=None, ssaa=None, asya=None, adjflux=1.0,
            ncld=None):
@@ -32,7 +42,7 @@ def launch(lib, taug, taur, sfluxzen, mu0, albdir, albdif, cldymc, taucmc,
     dev = taug.device
     mu0c = torch.clamp(mu0, min=1e-4).contiguous()
     zincflx = (adjflux * sfluxzen * mu0c[:, None]).contiguous()
-    weights = torch.as_tensor(WEIGHTS, device=dev)
+    weights = device_weights(dev)
     # per (layer, stream): rup, rupd and the layer's ref, tra, refd, trad
     # and direct transmittance
     scratch = torch.empty((ncol, nlay, 2, 7, 112),

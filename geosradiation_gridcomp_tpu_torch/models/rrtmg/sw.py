@@ -22,7 +22,7 @@ from .cldprmc_sw import (CLOUD_TABLE_KEYS, band_optics_coeffs_sw,
 from .nrlssi2 import solar_source_weights
 from .setcoef_sw import setcoef_sw
 from .spcvmc import spcvmc_sw
-from .spcvmc_cuda import spcvmc_fast
+from .spcvmc_cuda import device_weights, spcvmc_fast
 from .tables_sw import NGPTSW, sw_tables
 from .taumol_lw import TaumolTables
 from .taumol_sw import (solar_source_tables, sfluxzen_only, taumol_sw,
@@ -53,6 +53,8 @@ class RRTMGSW(nn.Module):
         for k, v in {**reference, **cloud, **zcw}.items():
             self.register_buffer(k, v)
         self._sources = {}
+        if self.preflog.device.type == "cuda":
+            device_weights(self.preflog.device)
 
     @classmethod
     def from_reference_tables(cls, device="cuda"):

@@ -15,8 +15,13 @@ levels on the scene of scene.example_inputs (seed 0), doy 172, 12 UTC,
 with bench.py's sw_partition_bounds packing: each step kernel's wrapper
 is recorded as the refresh calls it (`recording`, which chip_smoke.py
 uses too). Each of the six is then timed with CUDA events, the median
-of --rounds rounds of --k back-to-back calls, and held once against its
-plain twin (relmax, max|a - b| / max|b|, worst output).
+of --rounds rounds of --k back-to-back calls, held once against its
+plain twin (relmax, max|a - b| / max|b|, worst output), called once
+under torch.cuda.set_sync_debug_mode("error") (`sync_free`: true, or the
+error a synchronising call raised), and profiled over 5 calls
+(torch.profiler: `kernel_ms`, the device time of the CUDA kernel itself
+per call, and `other_device_ms`, that of everything else the wrapper
+runs on the device: copies, PyTorch's own kernels).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -35,16 +40,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = "geosradiation_gridcomp_tpu_torch"
 
 # the step kernels: name -> (scheme module that calls the wrapper, the
-# wrapper's name there, the plain twin as module:function)
+# wrapper's name there, the plain twin as module:function, the CUDA
+# kernel's function name in csrc/)
 STEP_KERNELS = {
     "mcica_optics_lw": ("lw", "mcica_optics_lw",
-                        "ops.mcica_cuda:mcica_optics_lw_plain"),
-    "taumol_lw": ("lw", "taumol_lw_fast", "models.rrtmg.taumol_lw:taumol_lw"),
-    "rtrnmc": ("lw", "rtrnmc_fast", "models.rrtmg.rtrnmc:rtrnmc"),
+                        "ops.mcica_cuda:mcica_optics_lw_plain",
+                        "mcica_lw_kernel"),
+    "taumol_lw": ("lw", "taumol_lw_fast", "models.rrtmg.taumol_lw:taumol_lw",
+                  "taumol_lw_kernel"),
+    "rtrnmc": ("lw", "rtrnmc_fast", "models.rrtmg.rtrnmc:rtrnmc",
+               "rtrnmc_kernel"),
     "mcica_optics_sw": ("sw", "mcica_optics_sw",
-                        "ops.mcica_cuda:mcica_optics_sw_plain"),
-    "taumol_sw": ("sw", "taumol_sw_fast", "models.rrtmg.taumol_sw:taumol_sw"),
-    "spcvmc": ("sw", "spcvmc_fast", "models.rrtmg.spcvmc:spcvmc_sw"),
+                        "ops.mcica_cuda:mcica_optics_sw_plain",
+                        "mcica_sw_kernel"),
+    "taumol_sw": ("sw", "taumol_sw_fast", "models.rrtmg.taumol_sw:taumol_sw",
+                  "taumol_sw_kernel"),
+    "spcvmc": ("sw", "spcvmc_fast", "models.rrtmg.spcvmc:spcvmc_sw",
+               "spcvmc_kernel"),
 }
 
 
@@ -69,7 +81,7 @@ def recording():
             return fn(*args, **kwargs)
         return wrapper
     saved = {}
-    for name, (m, attr, _) in STEP_KERNELS.items():
+    for name, (m, attr, *_) in STEP_KERNELS.items():
         saved[m, attr] = getattr(modules[m], attr)
         setattr(modules[m], attr, wrap(saved[m, attr], name))
     try:
@@ -108,6 +120,42 @@ def median_ms(torch, fn, k, rounds):
         end.synchronize()
         times.append(start.elapsed_time(end) / k)
     return statistics.median(times)
+
+
+def sync_free(torch, run):
+    """True if run() makes no call that synchronises the stream, else the
+    error torch raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+        return True
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def device_ms(torch, run, kernel, n=5):
+    """(kernel's, everything else's) device time per call of run(), ms,
+    from torch.profiler over n calls; kernel: the CUDA function's name."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    mine = other = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if kernel in e.key:
+                mine += e.device_time_total
+            else:
+                other += e.device_time_total
+    return mine / 1e3 / n, other / 1e3 / n
 
 
 def main(argv=None):
@@ -162,7 +210,10 @@ def main(argv=None):
         out[name] = dict(
             out_shape=list(got[0].shape), ncld=kw.get("ncld"),
             relmax=max(relmax(x, y) for x, y in zip(got, want)),
-            ms=median_ms(torch, run, args.k, args.rounds))
+            ms=median_ms(torch, run, args.k, args.rounds),
+            sync_free=sync_free(torch, run))
+        out[name]["kernel_ms"], out[name]["other_device_ms"] = device_ms(
+            torch, run, STEP_KERNELS[name][3])
     print(json.dumps(out))
 
 

@@ -11,7 +11,12 @@
 //  * launches are written `kernel<<<grid, block, smem, stream>>>(args)`
 //    (or `kernel<P><<<...>>>(args)` for one template argument);
 //  * every thread of a block reaches every __syncthreads and every thread
-//    of a warp reaches every shuffle.
+//    of a warp reaches every shuffle;
+//  * asynchronous copies into shared memory go through the pipeline
+//    primitives of <cuda_pipeline_primitives.h> (the test points that
+//    header here): a thread's copies are held back until it waits for
+//    their group, so a kernel that reads a slot before waiting for it reads
+//    stale data here too.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -30,6 +35,7 @@
 #define __launch_bounds__(...)
 #define __align__(x)
 #define __shared__ static
+#define __constant__
 
 struct dim3 {
     unsigned x, y, z;
@@ -46,7 +52,10 @@ inline float4 make_float4(float x, float y, float z, float w) {
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return cudaSuccess; }
+template <typename K>
+inline int cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 alignas(16) inline unsigned char emu_dyn_smem[1 << 18];
 
 namespace emu {
@@ -64,6 +73,52 @@ inline float __shfl_down_sync(unsigned, float v, int d) {
     const float r = lane + d < 32 ? emu::xchg[t + d] : v;
     bar.arrive_and_wait();
     return r;
+}
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+    const int t = threadIdx.x, lane = t % 32;
+    auto& bar = *emu::warp_bars[t / 32];
+    emu::xchg[t] = v;
+    bar.arrive_and_wait();
+    const unsigned src = t - lane + (lane ^ m);
+    const float r = src < blockDim.x ? emu::xchg[src] : v;
+    bar.arrive_and_wait();
+    return r;
+}
+inline int __any_sync(unsigned, int pred) {
+    const int t = threadIdx.x, lane = t % 32;
+    auto& bar = *emu::warp_bars[t / 32];
+    emu::xchg[t] = pred ? 1.0f : 0.0f;
+    bar.arrive_and_wait();
+    int any = 0;
+    for (unsigned i = t - lane; i < t - lane + 32 && i < blockDim.x; ++i)
+        any |= emu::xchg[i] != 0.0f;
+    bar.arrive_and_wait();
+    return any;
+}
+namespace emu {
+struct Copy {
+    void* dst;
+    const void* src;
+    size_t n;
+};
+inline thread_local std::vector<Copy> pending;             // not committed
+inline thread_local std::vector<std::vector<Copy>> groups;  // oldest first
+}  // namespace emu
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) {
+    emu::pending.push_back({dst, src, n});
+}
+inline void __pipeline_commit() {
+    emu::groups.push_back(std::move(emu::pending));
+    emu::pending.clear();
+}
+// complete every committed group but the newest `prior`
+inline void __pipeline_wait_prior(size_t prior) {
+    while (emu::groups.size() > prior) {
+        for (const auto& c : emu::groups.front())
+            std::memcpy(c.dst, c.src, c.n);
+        emu::groups.erase(emu::groups.begin());
+    }
 }
 inline int atomicOr(int* p, int v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }

@@ -7,12 +7,16 @@ pins jax to 8 virtual CPU devices):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances (relmax = max|a-b| / max|b|): K1 and K2 masks and counts
-exact, cloud optics <= 1e-5; K3 and K5 (per band), K4 and K6 <= 5e-4 (the
+exact, cloud optics <= 1e-5; K3 and K5 (per band, also on ragged tiles),
+K4 (also at other shapes, and equal to itself over two runs) and K6 <=
+5e-4 (the
 reference's kernel-parity gate, tools/verify_tpu.py:115-128); the LW
 refresh <= 5e-5 (the LW end-to-end gate); the SW state of the combined
 step <= 5e-4 (the SW end-to-end gate, tools/verify_tpu.py:279-281). K7,
 P1 and both P2 kernels exact; P3's full variant equal to K3 bit for bit,
-every variant <= 5e-4 per band (K3's gate).
+every variant <= 5e-4 per band (K3's gate). K4, K5 and K6's wrappers
+run under torch.cuda.set_sync_debug_mode("error"): none synchronises the
+stream.
 """
 
 import pytest
@@ -128,18 +132,24 @@ def test_k3_matches_plain(case, dev, with_taua):
             assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 1
 
 
+def _cell_block(coefs, start, shape):
+    """The fields of coefs at the flat cells start.. as an array of cells
+    of the given shape (columns x layers, or a flat cell axis)."""
+    n = 1
+    for d in shape:
+        n *= d
+    flat = _cells(coefs, coefs.jp.shape, slice(start, start + n))
+    return type(flat)(*(x.reshape(shape + x.shape[1:])
+                        if x.shape[:1] == (n,) else x for x in flat))
+
+
 @pytest.mark.parametrize("shape", [(1,), (31,), (33,), (203,), (6881,),
                                    (37, 72), (65, 3)], ids=str)
 @pytest.mark.parametrize("with_taua", [False, True])
 def test_k3_ragged_tiles(case, dev, shape, with_taua):
     """Cell arrays whose last tile of 32 columns is part full; P3's full
     variant equal to K3 on them."""
-    n = 1
-    for d in shape:
-        n *= d
-    flat = _cells(case["coefs"], case["coefs"].jp.shape, slice(9, 9 + n))
-    coefs = type(flat)(*(x.reshape(shape + x.shape[1:])
-                         if x.shape[:1] == (n,) else x for x in flat))
+    coefs = _cell_block(case["coefs"], 9, shape)
     taua = (torch.rand(shape + (16,), device=dev) * 0.02 if with_taua
             else None)
     tabs = case["lw"].taumol_tables
@@ -156,17 +166,87 @@ def test_k3_ragged_tiles(case, dev, shape, with_taua):
 
 
 def test_k4_matches_plain(case):
-    c = case["coefs"]
-    tau, cloudy, _ = mcica_optics_lw_plain(*case["k1"], cloud_mh=30,
-                                           cloud_lm=50)
-    tg, pf = taumol_lw(c, case["lw"].taumol_tables)
-    args = (case["emis"], tg, pf, cloudy, tau, c.planklay, c.planklev,
-            c.plankbnd, c.dplankbnd_dts, c.pwvcm)
+    args = _k4_case_args(case)
     a = rtrnmc_fast(*args)
     b = rtrnmc(*args)
     assert set(a) == set(b)
     for k in b:
         assert relmax(a[k], b[k]) <= 5e-4, k
+
+
+def _k4_random(dev, ncol, nlay, seed):
+    """rtrnmc's inputs drawn at random at any shape: thin and thick gas
+    layers, cloud in ~30 % of the layers on ~70 % of their g-points."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    r = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        *shape, device=dev, generator=gen)
+    cloudy = r(0.0, 1.0, ncol, nlay) > 0.7
+    taucmc = torch.where(cloudy[..., None]
+                         & (r(0.0, 1.0, ncol, nlay, 140) > 0.3),
+                         r(0.0, 5.0, ncol, nlay, 140), 0.0)
+    return (r(0.9, 1.0, ncol, 16), r(0.0, 1.5, ncol, nlay, 140) ** 2,
+            r(0.0, 0.2, ncol, nlay, 140), cloudy, taucmc,
+            r(0.01, 0.1, ncol, nlay, 16), r(0.01, 0.1, ncol, nlay + 1, 16),
+            r(0.01, 0.1, ncol, 16), r(1e-4, 1e-3, ncol, 16),
+            r(0.1, 6.0, ncol))
+
+
+@pytest.mark.parametrize("ncol,nlay", [(1, 72), (33, 72), (96, 5),
+                                       (7, 137)], ids=str)
+def test_k4_shapes(dev, ncol, nlay):
+    """K4 on one column, on a few layers (fewer than its ring holds) and
+    on 137 (its shared memory beyond 48 KB)."""
+    args = _k4_random(dev, ncol, nlay, ncol + nlay)
+    a = rtrnmc_fast(*args)
+    b = rtrnmc(*args)
+    for k in b:
+        assert a[k].shape == b[k].shape
+        assert relmax(a[k], b[k]) <= 5e-4, k
+
+
+def _k4_case_args(case):
+    c = case["coefs"]
+    tau, cloudy, _ = mcica_optics_lw_plain(*case["k1"], cloud_mh=30,
+                                           cloud_lm=50)
+    tg, pf = taumol_lw(c, case["lw"].taumol_tables)
+    return (case["emis"], tg, pf, cloudy, tau, c.planklay, c.planklev,
+            c.plankbnd, c.dplankbnd_dts, c.pwvcm)
+
+
+def test_k4_run_to_run(case):
+    args = _k4_case_args(case)
+    a, again = rtrnmc_fast(*args), rtrnmc_fast(*args)
+    for k in a:
+        assert torch.equal(a[k], again[k]), k
+
+
+def test_wrappers_do_not_synchronise(case, dev):
+    """K4, K5 and K6's wrappers copy nothing from the host per call: under
+    set_sync_debug_mode("error") a synchronising call raises."""
+    k4 = _k4_case_args(case)
+    tg, tr = taumol_sw(case["swcoefs"], case["sw"].taumol_tables)
+    tau, ssa, asm, cldy, _ = mcica_optics_sw_plain(
+        *case["k2"], case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+    gen = torch.Generator(dev).manual_seed(8)
+    rnd = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        *shape, device=dev, generator=gen)
+    k6 = (case["swcoefs"], tg, tr, rnd(0.1, 20.0, NCOL, 112),
+          rnd(-0.2, 1.0, NCOL), rnd(0.05, 0.3, NCOL, 14),
+          rnd(0.05, 0.3, NCOL, 14), cldy, tau, ssa, asm)
+    calls = ((rtrnmc_fast, k4, {}),
+             (taumol_sw_fast, (case["swcoefs"], case["sw"].taumol_tables),
+              {}),
+             (spcvmc_fast, k6, dict(ncld=40)))
+    for fn, args, kw in calls:
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, args, kw in calls:
+            fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_refresh_runs_the_kernels(case):
@@ -199,6 +279,21 @@ def test_k5_matches_plain(case):
     a = taumol_sw_fast(case["swcoefs"], tabs)
     b = taumol_sw(case["swcoefs"], tabs)
     for x, y in zip(a, b):
+        for i in range(14):
+            sl = slice(NGS_SW[i], NGS_SW[i + 1])
+            assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 16
+
+
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (203,), (6881,),
+                                   (37, 72), (65, 3)], ids=str)
+def test_k5_ragged_tiles(case, shape):
+    """Cell arrays whose last tile of 32 columns is part full."""
+    coefs = _cell_block(case["swcoefs"], 9, shape)
+    tabs = case["sw"].taumol_tables
+    a = taumol_sw_fast(coefs, tabs)
+    b = taumol_sw(coefs, tabs)
+    for x, y in zip(a, b):
+        assert x.shape == shape + (112,)
         for i in range(14):
             sl = slice(NGS_SW[i], NGS_SW[i + 1])
             assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 16
@@ -284,6 +379,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     with pytest.raises(ValueError):
         mcica_optics_sw(*case["k2"][:-1], case["k2"][-1][:6],
                         case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+    # K5 reads the fields in place: an index of another type or a field
+    # that is not contiguous is refused, not copied
+    sc, stabs = case["swcoefs"], case["sw"].taumol_tables
+    with pytest.raises(TypeError):
+        taumol_sw_fast(sc._replace(jp=sc.jp.long()), stabs)
+    with pytest.raises(ValueError):
+        taumol_sw_fast(sc._replace(fac00=sc.fac00.t().contiguous().t()),
+                       stabs)
+    k4 = list(_k4_case_args(case))
+    k4[3] = k4[3].float()
+    with pytest.raises(TypeError):
+        rtrnmc_fast(*k4)
 
 
 def test_k7_equals_plain(case):

@@ -74,8 +74,9 @@ def lib(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to compile the emulated kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
-    (out / "cuda_runtime.h").write_text(
-        f'#include "{os.path.join(HERE, "cuda_emu.h")}"\n')
+    for header in ("cuda_runtime.h", "cuda_pipeline_primitives.h"):
+        (out / header).write_text(
+            f'#include "{os.path.join(HERE, "cuda_emu.h")}"\n')
     for src in glob.glob(os.path.join(CSRC, "*.cu*")):
         text = open(src).read().replace(
             "extern __shared__ __align__(16) unsigned char dyn_smem[];",
@@ -187,6 +188,48 @@ def test_k4_emulated_matches_plain(lib, case):
         assert relmax(a[k], b[k]) <= 1e-6, k
 
 
+@pytest.mark.parametrize("kind", ["clear", "one_cloudy_layer", "five_layers"])
+def test_k4_emulated_divergence_and_depth(lib, case, kind):
+    """K4 with every column clear (the clear-sky stream follows the
+    all-sky one), with one cloudy layer in one column, half its g-points
+    cloudy (the column diverges below it on the way down and everywhere on
+    the way up), and on five layers, fewer than its ring holds."""
+    c = case["coefs"]
+    tau, cloudy, _ = mcica_cuda.mcica_optics_lw_plain(
+        *case["k1"], case["lw"].zcw_cols(1), cloud_mh=MH, cloud_lm=LM)
+    tg, pf = taumol_lw(c, case["lw"].taumol_tables)
+    planklay, planklev = c.planklay, c.planklev
+    if kind == "five_layers":
+        # the bottom five: near the model top the optical depths are so
+        # small that an ulp of expf in 1 - exp(-tau) reaches 1e-6 of the
+        # fluxes there
+        tg, pf, tau, cloudy, planklay = (
+            x[:, -5:].contiguous() for x in (tg, pf, tau, cloudy, planklay))
+        planklev = planklev[:, -6:].contiguous()
+    else:
+        cloudy = torch.zeros_like(cloudy)
+        tau = torch.zeros_like(tau)
+        if kind == "one_cloudy_layer":
+            rng = np.random.default_rng(9)
+            cloudy[1, 37] = True
+            tau[1, 37, ::2] = torch.as_tensor(
+                rng.uniform(0.1, 3.0, 70).astype(np.float32))
+    args = (case["emis"], tg, pf, cloudy, tau, planklay, planklev,
+            c.plankbnd, c.dplankbnd_dts, c.pwvcm)
+    a = rtrnmc_cuda.launch(lib, *args)
+    b = rtrnmc(*args)
+    for k in b:
+        assert relmax(a[k], b[k]) <= 1e-6, k
+    if kind == "clear":
+        for clear, full in (("uflxc", "uflx"), ("dflxc", "dflx"),
+                            ("duflxc_dts", "duflx_dts")):
+            assert torch.equal(a[clear], a[full])
+    elif kind == "one_cloudy_layer":
+        assert torch.equal(a["dflxc"][1, :38], a["dflx"][1, :38])
+        assert not torch.equal(a["uflxc"][1], a["uflx"][1])
+        assert torch.equal(a["uflxc"][0], a["uflx"][0])
+
+
 @pytest.fixture(scope="module")
 def sw_case(case):
     """The SW kernels' inputs on the same scene: K2's with the SW seed
@@ -226,6 +269,19 @@ def test_k5_emulated_matches_plain(lib, sw_case):
     a = taumol_sw_cuda.launch(lib, c, tabs)
     b = taumol_sw(c, tabs)
     for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (203,), (37, 3),
+                                   (65, 2)], ids=str)
+def test_k5_emulated_ragged_tiles(lib, sw_case, shape):
+    """Cell arrays whose last tile of 32 columns is part full."""
+    coefs = _cell_block(sw_case["coefs"], 7, shape)
+    tabs = sw_case["sw"].taumol_tables
+    a = taumol_sw_cuda.launch(lib, coefs, tabs)
+    b = taumol_sw(coefs, tabs)
+    for x, y in zip(a, b):
+        assert x.shape == shape + (112,)
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-30)
 
 

@@ -196,7 +196,7 @@ def test_kernel_ab_recording_keeps_each_step_kernels_first_call():
     nlit, ncld = step.sw_partition_bounds(inp.lons, inp.lats, inp.fcld,
                                           172.0, 12.0, cfg, bucket=2)
     before = {(m, a): getattr(dict(lw=lw, sw=sw)[m], a)
-              for m, a, _ in kernel_ab.STEP_KERNELS.values()}
+              for m, a, *_ in kernel_ab.STEP_KERNELS.values()}
     with kernel_ab.recording() as calls:
         step.radiation_refresh(
             inp, 172.0, 12.0, config=cfg, ict=69, icb=71, sw_nlit=nlit,
