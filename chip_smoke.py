@@ -17,8 +17,12 @@ nvcc per source side by side, then:
    every IrradState field and LW export must agree with the plain path on
    the same card to relmax <= 5e-5, every SolarState field and SW export
    to relmax <= 5e-4 with at most 0.5 % of columns beyond 5e-5
-   (tools/verify_tpu.py:279-281); fluxes must be physical; the wall time
-   of the refresh with the kernels and with the plain twins;
+   (tools/verify_tpu.py:279-281); the heating rates in the reference's
+   form (tests/test_accuracy.py:142-152): the flux-divergence error in
+   every layer and the relative rate where dp > 100 Pa, each within the
+   bound the flux gates imply (heating_rate_gates); fluxes must be
+   physical; the wall time of the refresh with the kernels and with the
+   plain twins;
 2. kernel phases of K1-K6 at the main path's shapes, on the inputs the
    refresh gave them: each kernel against its plain PyTorch twin on the
    same inputs on the card (K1, K2: cloudy masks and clear counts
@@ -29,9 +33,10 @@ nvcc per source side by side, then:
    kernel's bound: bytes over the memory rate, or the work, whichever is
    larger;
    the work is operations over the FP32 peak, and for the threefry draws
-   of K1, K2 and K7 the SASS instructions of one draw as nvcc compiles it
-   in this run, over the rates of the SM's pipes; then K4, K5 and K6's
-   wrappers once more on those inputs under
+   of K1, K2 and K7 (with K1 and K2's subkeys) the SASS instructions of
+   one draw as nvcc compiles it in this run, over the rates of the SM's
+   pipes; then K1, K2, K4, K5 and K6's wrappers once more on those inputs
+   under
    torch.cuda.set_sync_debug_mode("error"), where any call that
    synchronises the stream (a copy from host memory) raises;
 3. kernel phases of the verification and profiling kernels at the sizes
@@ -57,8 +62,10 @@ geosradiation_gridcomp_tpu was loaded.
 adds, after the step phase, where the time of the full-width refresh
 goes: its wall time over 30 runs, the device time of each CUDA kernel,
 the launches per refresh and the device's idle share (torch.profiler),
-and the solar_refresh, irrad_refresh and subcolumn_keys stages alone
-(CUDA events).
+a check that the refresh calls neither ops.mcica.subcolumn_keys nor
+band_optics_coeffs_sw (K1 and K2 derive the subkeys, K2 the SW band
+optics, on the card), and the solar_refresh and irrad_refresh stages
+alone, beside subcolumn_keys, now off the kernel path (CUDA events).
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
@@ -115,6 +122,34 @@ def gate(name, value, limit):
         raise AssertionError(f"{name}: {value:.3e} > {limit:.0e}")
 
 
+def heating_rate_gates(dtdt, dtdt_ref, ple, fsw_ref, flw_ref, tol_sw,
+                       tol_lw):
+    """The heating rates in the reference's form (tests/test_accuracy.py:
+    142-152): the error of the flux divergence in every layer, and the
+    relative rate where dp > 100 Pa.
+
+    dtdt = GRAV / (CP dp) times the difference of the SW+LW net flux
+    between a layer's levels, so |error| * dp is GRAV / CP times the error
+    of two flux differences: where the fsw and flw exports pass their
+    relmax gates tol_sw and tol_lw, it is at most
+    B = 2 (tol_sw max|fsw| + tol_lw max|flw|) GRAV / CP in every layer,
+    the model-top layers of a few Pa included. In a layer thicker than
+    100 Pa the rate's error is then at most B / 100 Pa; relative to the
+    largest rate of those layers that is the relative bound."""
+    from geosradiation_gridcomp_tpu_torch.constants import CP, GRAV
+
+    dp = (ple[:, 1:] - ple[:, :-1]).double()
+    err = (dtdt.double() - dtdt_ref.double()).abs()
+    div = 2.0 * (tol_sw * float(fsw_ref.abs().max())
+                 + tol_lw * float(flw_ref.abs().max())) * GRAV / CP
+    gate("heating rates: |error| x dp, every layer", float((err * dp).max()),
+         div)
+    deep = dp > 100.0
+    top = float(dtdt_ref[deep].double().abs().max())
+    gate("heating rates: relmax where dp > 100 Pa",
+         float(err[deep].max()) / top, div / (100.0 * top))
+
+
 def time_ms(torch, fn, n):
     """Mean device time of fn over n runs (CUDA events, after a warm-up)."""
     fn()
@@ -152,6 +187,16 @@ DISPATCH_PER_CLOCK = 128
 # kernel_resources.threefry_counts in this run
 MCICA_INSNS = 10       # fp32 zcw lookup and cloud optics per (cell,
 #                        subcolumn)
+MCICA_SW_INSNS = 16    # K2 per (cell, subcolumn): zcw lookup (5), the
+#                        four water-path products, two floors, two
+#                        divisions (each a reciprocal and a product), the
+#                        asymmetry numerator (3)
+SW_BAND_OPS = 60       # K2's prologue per (cell, band): the radius
+#                        factors and indices, 7 row interpolations (3
+#                        each), Fu's forward fraction, the two phases'
+#                        delta folding (2 divisions and 8 operations each)
+KEY_DRAWS = 8          # threefry calls of one column's subkeys: 4 fold_in
+#                        and a split into 4
 TAUMOL_LW_OPS = 40     # per (cell, g-point): ~12 table terms, weights, sums
 TAUMOL_SW_OPS = 30     # per (cell, g-point)
 RTRNMC_OPS = 60        # per (cell, g-point): both sweeps, exp, Planck terms
@@ -203,14 +248,20 @@ def draw_counts(draw, draws, extra=None):
 
 
 def mcica_bound(args, kw, out, ng, draw):
-    """K1, K2: the draws of the columns with cloud (the kernel skips the
-    others) and the inputs and outputs."""
+    """K1, K2: the inputs (play in place of the subkeys; K2 also rei, rel
+    and its packed tables in place of the band planes) and the outputs,
+    or the work of the columns with cloud (the kernels skip the others):
+    their subkeys, the draws and the per-cell arithmetic, and K2's
+    prologue, the band optics of each (cell, band)."""
     cldf = args[3]
     ncloudy = int((cldf > 0.0).any(dim=1).sum())
     draws = 2 + (2 if kw.get("inhm", 1) != 0 else 0)
-    cells = ncloudy * cldf.shape[1] * ng
-    return bound(nbytes(args, out), seconds=issue_seconds(
-        draw_counts(draw, draws, {"fp32": MCICA_INSNS}), cells))
+    cells = ncloudy * cldf.shape[1]
+    sw = ng == 112
+    work = draw_counts(draw, draws * cells * ng + KEY_DRAWS * ncloudy, {
+        "fp32": (MCICA_SW_INSNS if sw else MCICA_INSNS) * cells * ng
+        + (SW_BAND_OPS * cells * 14 if sw else 0)})
+    return bound(nbytes(args, out), seconds=issue_seconds(work, 1))
 
 
 def taumol_bound(coefs, fields, tabs, ng, ops, out, taua=None):
@@ -347,14 +398,15 @@ def step_kernel_phases(torch, dev, calls, draw):
 
 
 def sync_free_phase(torch, calls):
-    """K4, K5 and K6's wrappers on the refresh's inputs under
+    """K1, K2, K4, K5 and K6's wrappers on the refresh's inputs under
     set_sync_debug_mode("error"): a wrapper that synchronises the stream
     (a copy from host memory, a read of a device value) fails."""
     from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import \
         sync_free
 
     print("sync-free wrappers, set_sync_debug_mode('error'):")
-    for name in ("rtrnmc", "taumol_sw", "spcvmc"):
+    for name in ("mcica_optics_lw", "mcica_optics_sw", "rtrnmc",
+                 "taumol_sw", "spcvmc"):
         fn, args, kw = calls[name]
         res = sync_free(torch, lambda: fn(*args, **kw))
         print(f"  {name:36s} {'PASS' if res is True else res}")
@@ -572,9 +624,9 @@ def step_phase(torch, dev):
         flips.append((flipped_share(a, b), name))
     worst = max(flips)
     gate(f"flipped column share, worst ({worst[1]})", worst[0], 5e-3)
-    # heating rates divide flux differences by the layer's dp, which is a
-    # few Pa near the model top: reported, not gated
     dtdt, dtdt_p = upd["dtdt"], upd_p["dtdt"]
+    heating_rate_gates(dtdt, dtdt_p, inp.ple, upd_p["sw"]["fsw"],
+                       upd_p["lw"]["flw"], 5e-4, 5e-5)
     play = 0.5 * (inp.ple[:, 1:] + inp.ple[:, :-1])
     low = play > 1.0e4
     print(f"  heating_rates relmax {relmax(dtdt, dtdt_p):.3e}, below "
@@ -693,6 +745,15 @@ def profile_phase(torch, step, nwall=30, nprof=5):
           f"({100.0 * (1.0 - busy / max(span, 1)):.1f} % idle under the "
           f"profiler)")
 
+    # K1 and K2 derive the subkeys and K2 the SW band optics on the card:
+    # the refresh calls neither subcolumn_keys nor band_optics_coeffs_sw
+    # (the plain twins do)
+    found = off_kernel_path_calls(lambda: refresh(False))
+    print(f"  calls of the plain key and band-optics functions in a "
+          f"refresh: {found}")
+    if any(found.values()):
+        raise AssertionError(f"the refresh ran {found}")
+
     slr, lit = mean_cos_zenith(inp.lons, inp.lats, DOY, UTC,
                                cfg.solar_dt / 3600.0)
     zth = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
@@ -704,12 +765,39 @@ def profile_phase(torch, step, nwall=30, nprof=5):
             ncld=step["ncld"], sw=step["mods"]["sw"]),
         irrad_refresh=lambda: rad.irrad_refresh(
             inp, DOY, cfg, step["ict"], step["icb"], lw=step["mods"]["lw"]),
-        subcolumn_keys_lw=lambda: mcica.subcolumn_keys(play),
-        subcolumn_keys_sw=lambda: mcica.subcolumn_keys(
+        subcolumn_keys_lw_off_kernel_path=lambda: mcica.subcolumn_keys(play),
+        subcolumn_keys_sw_off_kernel_path=lambda: mcica.subcolumn_keys(
             play[:nlit], SEED_ORDER_SW))
     for name, fn in stages.items():
         print(f"  {name} alone: {time_ms(torch, fn, 10):.3f} ms (CUDA "
               f"events, mean of 10)")
+
+
+def off_kernel_path_calls(run):
+    """Calls that run() makes of ops.mcica.subcolumn_keys and of
+    cldprmc_sw.band_optics_coeffs_sw, wherever the port imported them."""
+    import importlib
+    names = ("subcolumn_keys", "band_optics_coeffs_sw")
+    mods = [importlib.import_module(f"geosradiation_gridcomp_tpu_torch.{m}")
+            for m in ("ops.mcica", "ops.mcica_cuda", "models.rrtmg.sw",
+                      "models.rrtmg.lw", "models.rrtmg.cldprmc_sw")]
+    found = dict.fromkeys(names, 0)
+    saved = [(m, n, getattr(m, n)) for m in mods for n in names
+             if hasattr(m, n)]
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            found[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    try:
+        for m, n, fn in saved:
+            setattr(m, n, counted(n, fn))
+        run()
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    return found
 
 
 _CSRC = "geosradiation_gridcomp_tpu_torch/csrc/"

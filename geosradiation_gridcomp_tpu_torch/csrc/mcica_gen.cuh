@@ -2,14 +2,16 @@
 // K2 (mcica_sw.cu) and, through its raw draws, K7 (mcica_raw.cu).
 //
 // Computes what the CPU oracle's generate_stochastic_clouds computes for one
-// subcolumn (g-point) of one column: the jax.random threefry-2x32 stream of
-// the 4 per-column subkeys (partitionable scheme, counter g*nlay + l), the
+// subcolumn (g-point) of one column: the column's 4 threefry subkeys from
+// the fractional Pa of its lowest four layers (column_subkey, the oracle's
+// state_seed_ints + state_seed_key + split), the jax.random threefry-2x32
+// stream of those subkeys (partitionable scheme, counter g*nlay + l), the
 // two exponential-overlap forward fills run as a serial loop down the
 // layers, the zcw condensate scaling read from the exact (3, 1000) class
 // table, the cwp_tiny threshold, and the column's four clear-subcolumn
-// flags (total, high, mid, low). Products that decide an index or feed an
-// exact comparison use __fmul_rn/__fadd_rn, so no contraction into FMA
-// changes their rounding from the plain PyTorch twin.
+// flags (total, high, mid, low). Products that decide an index, a seed or
+// feed an exact comparison use __fmul_rn/__fadd_rn/__fsub_rn, so no
+// contraction into FMA changes their rounding from the plain PyTorch twin.
 #pragma once
 
 #include "common.cuh"
@@ -24,9 +26,14 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
 
 #define TF_ROUND(r) x0 += x1; x1 = rotl(x1, r); x1 ^= x0;
 
-// Threefry-2x32, 20 rounds, count words (0, ctr): returns w0 ^ w1.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t ctr) {
+// The two words of a Threefry-2x32 output.
+struct Words {
+    uint32_t w0, w1;
+};
+
+// Threefry-2x32, 20 rounds, key (k0, k1), count words (0, ctr).
+__device__ __forceinline__ Words threefry2(uint32_t k0, uint32_t k1,
+                                           uint32_t ctr) {
     const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
     uint32_t x0 = k0;
     uint32_t x1 = ctr + k1;
@@ -40,7 +47,14 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
     x0 += k1; x1 += k2 + 4u;
     TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
     x0 += k2; x1 += k0 + 5u;
-    return x0 ^ x1;
+    return Words{x0, x1};
+}
+
+// The draw's 32 random bits, w0 ^ w1 (jax.random's bits for uniform).
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t ctr) {
+    const Words w = threefry2(k0, k1, ctr);
+    return w.w0 ^ w.w1;
 }
 
 #undef TF_ROUND
@@ -48,6 +62,43 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 // jax.random.uniform's float in [0, 1) from 32 random bits.
 __device__ __forceinline__ float unit_float(uint32_t bits) {
     return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// Subkey i (0..3) of a column, as ops/mcica.py:subcolumn_keys derives it:
+// the state seeds are the fractional Pa of the lowest four layers of play
+// (hPa, TOA first), taken in the seed order (seed_order packs the four
+// indices into 2-bit fields, entry j at bits 2j), each as
+// uint32((p - floor(p)) * float32(2147483646) + 1) with p = play * 100;
+// key (0, 0) is folded with the four seeds (fold_in(k, d) = threefry of
+// (0, d)), then split: subkey i = threefry of (0, i).
+__device__ __forceinline__ Words column_subkey(const float* play, int nlay,
+                                               int seed_order, int i) {
+    uint32_t k0 = 0u, k1 = 0u;
+    for (int j = 0; j < 4; ++j) {
+        const int s = (seed_order >> (2 * j)) & 3;
+        const float p = __fmul_rn(play[nlay - 1 - s], 100.0f);
+        // float32(2147483646) is 2^31; the sum can round up to it, so
+        // the conversion is to unsigned, truncating as the oracle's cast
+        const float v = __fadd_rn(__fmul_rn(__fsub_rn(p, floorf(p)),
+                                            2147483648.0f), 1.0f);
+        const Words w = threefry2(k0, k1, __float2uint_rz(v));
+        k0 = w.w0;
+        k1 = w.w1;
+    }
+    return threefry2(k0, k1, static_cast<uint32_t>(i));
+}
+
+// Threads 0..3 of a column (t = the thread's index within the column) each
+// write one of the column's subkeys into keys[8]; the caller synchronises
+// before the generator reads them.
+__device__ __forceinline__ void column_subkeys(const float* play, int nlay,
+                                               int seed_order, int t,
+                                               uint32_t* keys) {
+    if (t < 4) {
+        const Words w = column_subkey(play, nlay, seed_order, t);
+        keys[2 * t] = w.w0;
+        keys[2 * t + 1] = w.w1;
+    }
 }
 
 // Condensate scaling: linear in the cdf along the class column.
@@ -70,6 +121,7 @@ struct CloudFlags {
 // Per-column arguments of the generator.
 struct Column {
     const uint32_t* keys;   // this column's 4 subkeys, [4][2]
+                            // (column_subkeys, or K7's input)
     const float* alpha;     // rows of this column, [nlay]
     const float* rcorr;
     const float* cldf;

@@ -7,11 +7,15 @@ and forward fraction from particle sizes (ice: 1 Ebert-Curry, 2 Key,
 3 Fu with the fdelta table; liquid: Hu & Stamnes with the low-radius
 ssa overshoot clamp), then the per-g-point delta-scaled combination of
 the two phases. The per-band half (`band_optics_coeffs_sw`) depends only
-on (column, layer); the per-g half (`cldprmc_from_band_coeffs_sw`) is
-what kernel K2 evaluates in its registers.
+on (column, layer); the per-g half (`cldprmc_from_band_coeffs_sw`) holds
+the per-g-point expressions. Kernel K2 evaluates both itself from the
+particle sizes and the tables of one iceflag packed into one tensor
+(`pack_cloud_tables_sw`).
 
 The tables come from `sw_cloud_tables` (or the RRTMGSW module's buffers).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +44,47 @@ def sw_cloud_tables(device="cuda"):
         [np.asarray(t[k + "bari"], np.float32)[ib5] for k in "abcdef"]),
         device=device)
     return out
+
+
+# the ice tables each iceflag reads, in the order K2 reads them packed;
+# then the liquid tables (liqflag 1, Hu & Stamnes)
+ICE_TABLE_KEYS = {1: ("ice1_coeffs",),
+                  2: ("extice2", "ssaice2", "asyice2"),
+                  3: ("extice3", "ssaice3", "asyice3", "fdlice3")}
+LIQ_TABLE_KEYS = ("extliq1", "ssaliq1", "asyliq1")
+
+
+class CloudPackSW(NamedTuple):
+    """The rrtmg_sw_cld tables of one iceflag as K2 reads them: `pack`,
+    float32 [n], the ICE_TABLE_KEYS[iceflag] tables (each (nice, 14);
+    iceflag 1: the (6, 14) Ebert-Curry rows) then the LIQ_TABLE_KEYS ones
+    (each (nliq, 14)), each row-major."""
+    pack: torch.Tensor
+    iceflag: int
+    nice: int
+    nliq: int
+
+
+def pack_cloud_tables_sw(tables, iceflag):
+    """CloudPackSW of the tables (a dict as sw_cloud_tables gives it) for
+    iceflag 1, 2 or 3."""
+    if iceflag not in ICE_TABLE_KEYS:
+        raise ValueError(f"iceflag {iceflag} does not exist for RRTMG-SW")
+    keys = ICE_TABLE_KEYS[iceflag] + LIQ_TABLE_KEYS
+    pack = torch.cat([tables[k].reshape(-1) for k in keys]).to(
+        torch.float32).contiguous()
+    return CloudPackSW(pack, iceflag, tables[keys[0]].shape[0],
+                       tables[LIQ_TABLE_KEYS[0]].shape[0])
+
+
+def unpack_cloud_tables_sw(cloud):
+    """The tables of a CloudPackSW as a dict of views, the keys
+    band_optics_coeffs_sw reads for its iceflag."""
+    keys = ICE_TABLE_KEYS[cloud.iceflag]
+    n_ice = len(keys) * cloud.nice * 14
+    ice = cloud.pack[:n_ice].view(len(keys), cloud.nice, 14)
+    liq = cloud.pack[n_ice:].view(len(LIQ_TABLE_KEYS), cloud.nliq, 14)
+    return {**dict(zip(keys, ice)), **dict(zip(LIQ_TABLE_KEYS, liq))}
 
 
 def _interp_rows(tab, index, fint):

@@ -1,8 +1,8 @@
 """RRTMG-LW all-sky McICA driver (the reference's rrtmg_lw), PyTorch.
 
 Port of geosradiation_gridcomp_tpu/models/rrtmg/lw.py through its non-TPU
-branch: state seeds and overlap parameters -> McICA subcolumns, cloud
-optics and clear counts (K1) -> setcoef -> taumol (K3) -> rtrnmc (K4).
+branch: overlap parameters -> McICA subcolumns from the state seeds,
+cloud optics and clear counts (K1) -> setcoef -> taumol (K3) -> rtrnmc (K4).
 Each kernel wrapper runs its plain twin for CPU tensors and its CUDA
 kernel for CUDA tensors.
 
@@ -13,8 +13,7 @@ import torch
 from torch import nn
 
 from ...constants import AMD, GRAV, RGAS
-from ...ops.mcica import (_sigma_class, overlap_params, subcolumn_keys,
-                          zcw_class_columns)
+from ...ops.mcica import _sigma_class, overlap_params, zcw_class_columns
 from ...ops.mcica_cuda import mcica_optics_lw, mcica_optics_lw_plain
 from .cldprmc_lw import CLOUD_TABLE_KEYS, band_abs_coeffs_lw, lw_cloud_tables
 from .rtrnmc import rtrnmc
@@ -150,7 +149,6 @@ def rrtmg_lw(lw, ple, play, tlay, tlev, tsfc, emis,
     """
     plev = ple * 0.01
     alpha, rcorr = overlap_params(zm, alat, doy)
-    keys = subcolumn_keys(play, (0, 1, 2, 3))
     absi, absl = band_abs_coeffs_lw(rei, rel, lw.cloud_tables,
                                     iceflag=iceflag, liqflag=liqflag)
     zcw = lw.zcw_cols(inhm)
@@ -158,7 +156,7 @@ def rrtmg_lw(lw, ple, play, tlay, tlev, tsfc, emis,
     taumol = taumol_lw if plain else taumol_lw_fast
     transfer = rtrnmc if plain else rtrnmc_fast
     taucmc, cloudy, counts = mcica(
-        keys, alpha, rcorr, cldf, ciwp, clwp, _sigma_class(cldf),
+        play.contiguous(), alpha, rcorr, cldf, ciwp, clwp, _sigma_class(cldf),
         absi.contiguous(), absl.contiguous(), zcw, cloud_mh=cloud_mh,
         cloud_lm=cloud_lm, inhm=inhm, cwp_tiny=1.0e-20)
 

@@ -14,11 +14,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.mcica import (_sigma_class, overlap_params, subcolumn_keys,
-                          zcw_class_columns)
+from ...ops.mcica import _sigma_class, overlap_params, zcw_class_columns
 from ...ops.mcica_cuda import mcica_optics_sw, mcica_optics_sw_plain
-from .cldprmc_sw import (CLOUD_TABLE_KEYS, band_optics_coeffs_sw,
-                         sw_cloud_tables)
+from .cldprmc_sw import (CLOUD_TABLE_KEYS, ICE_TABLE_KEYS, CloudPackSW,
+                         pack_cloud_tables_sw, sw_cloud_tables)
 from .nrlssi2 import solar_source_weights
 from .setcoef_sw import setcoef_sw
 from .spcvmc import spcvmc_sw
@@ -40,7 +39,8 @@ class RRTMGSW(nn.Module):
 
     Buffers: the packed k-distribution (`taumol_pack`, `taumol_offsets`,
     indexed by `taumol_index`), the reference profile (`preflog`,
-    `tref`), the cloud optics tables and the McICA xcw class columns.
+    `tref`), the cloud optics tables, the same packed per iceflag as K2
+    reads them (`cloud_pack1`..`3`) and the McICA xcw class columns.
     The solar-source tables, which depend on the NRLSSI2 weights of the
     configuration, are built on first use and kept per weight set.
     """
@@ -52,6 +52,9 @@ class RRTMGSW(nn.Module):
         self.register_buffer("taumol_offsets", taumol.offsets)
         for k, v in {**reference, **cloud, **zcw}.items():
             self.register_buffer(k, v)
+        for f in ICE_TABLE_KEYS:
+            self.register_buffer(f"cloud_pack{f}",
+                                 pack_cloud_tables_sw(cloud, f).pack)
         self._sources = {}
         if self.preflog.device.type == "cuda":
             device_weights(self.preflog.device)
@@ -82,6 +85,14 @@ class RRTMGSW(nn.Module):
     @property
     def cloud_tables(self):
         return {k: getattr(self, k) for k in CLOUD_TABLE_KEYS}
+
+    def cloud_pack(self, iceflag):
+        """The CloudPackSW K2 reads for iceflag (1, 2 or 3), built once."""
+        if iceflag not in ICE_TABLE_KEYS:
+            raise ValueError(f"iceflag {iceflag} does not exist for RRTMG-SW")
+        return CloudPackSW(getattr(self, f"cloud_pack{iceflag}"), iceflag,
+                           getattr(self, ICE_TABLE_KEYS[iceflag][0]).shape[0],
+                           self.extliq1.shape[0])
 
     def zcw_cols(self, inhm):
         return self.zcw_beta if inhm == 1 else self.zcw_gamma
@@ -156,14 +167,15 @@ def rrtmg_sw(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
     else:
         ncld = None
 
+    if liqflag != 1:
+        raise NotImplementedError("only liqflag=1 (Hu & Stamnes) exists")
     alpha, rcorr = overlap_params(zm, alat, doy)
-    coeffs = torch.stack(band_optics_coeffs_sw(
-        rei, rel, sw.cloud_tables, iceflag=iceflag, liqflag=liqflag))
     mcica = mcica_optics_sw_plain if plain else mcica_optics_sw
     taucmc, ssacmc, asmcmc, cldymc, counts = mcica(
-        subcolumn_keys(play, SEED_ORDER_SW), alpha, rcorr, cldf, ciwp,
-        clwp, _sigma_class(cldf), coeffs, sw.zcw_cols(inhm),
-        cloud_mh=cloud_mh, cloud_lm=cloud_lm, inhm=inhm, cwp_tiny=1.0e-20)
+        play.contiguous(), alpha, rcorr, cldf, ciwp, clwp, _sigma_class(cldf),
+        rei.contiguous(), rel.contiguous(), sw.cloud_pack(iceflag),
+        sw.zcw_cols(inhm), cloud_mh=cloud_mh, cloud_lm=cloud_lm,
+        seed_order=SEED_ORDER_SW, inhm=inhm, cwp_tiny=1.0e-20)
 
     coefs = setcoef_sw(play, tlay, ple * 0.01, h2ovmr, o3vmr, co2vmr,
                        ch4vmr, o2vmr, sw.reference_tables)

@@ -66,7 +66,7 @@ def k1_args(s, dev):
     """K1's arguments for the scene (beta condensate PDF)."""
     alpha, rcorr = mcica.overlap_params(s["zmid"], s["alat"], DOY)
     absi, absl = band_abs_coeffs_lw(s["rei"], s["rel"], lw_cloud_tables(dev))
-    return (mcica.subcolumn_keys(s["play"]), alpha, rcorr, s["cldf"],
+    return (s["play"], alpha, rcorr, s["cldf"],
             s["ciwp"], s["clwp"], mcica._sigma_class(s["cldf"]),
             absi.contiguous(), absl.contiguous(),
             torch.as_tensor(mcica.zcw_class_columns(1), device=dev))

@@ -23,6 +23,18 @@ error a synchronising call raised), and profiled over 5 calls
 per call, and `other_device_ms`, that of everything else the wrapper
 runs on the device: copies, PyTorch's own kernels).
 
+Two McICA stages are timed as a whole, so that checkouts whose K1 and K2
+take different inputs compare: `lw_mcica_stage` and `sw_mcica_stage`,
+the scheme's McICA kernel with whatever the scheme runs to feed it (a
+checkout whose K1/K2 take threefry subkeys and band planes derives them
+first, with ops.mcica.subcolumn_keys and band_optics_coeffs_sw + a
+stack; one whose kernels take play, rei and rel runs the kernel alone):
+`ms` (CUDA events, as above), `device_ms` and `launches` per call
+(torch.profiler). `refresh` is the whole radiation_refresh: `wall_ms`,
+the median of --rounds x --k refreshes each timed on the host clock
+between two synchronisations, and `device_ms`, `launches` and the `top`
+device kernels (name, ms, launches) per refresh (torch.profiler over 5).
+
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -60,6 +72,12 @@ STEP_KERNELS = {
 }
 
 
+# what a scheme module may call to feed its McICA kernel: recorded as
+# "<module>.<function>" where the module has it
+STAGE_HELPERS = {"lw": ("subcolumn_keys",),
+                 "sw": ("subcolumn_keys", "band_optics_coeffs_sw")}
+
+
 def plain_twin(name):
     """The plain PyTorch twin of step kernel `name`."""
     mod, fn = STEP_KERNELS[name][2].split(":")
@@ -70,7 +88,8 @@ def plain_twin(name):
 def recording():
     """Within the block, each step kernel's wrapper, as the scheme modules
     (models/rrtmg/lw.py, sw.py) call it, keeps the arguments of its first
-    call: yields kernel name -> (wrapper, args, kwargs)."""
+    call: yields kernel name -> (wrapper, args, kwargs). So does each
+    STAGE_HELPERS function a scheme module has, as "<module>.<name>"."""
     modules = {m: importlib.import_module(f"{_PKG}.models.rrtmg.{m}")
                for m in ("lw", "sw")}
     calls = {}
@@ -81,7 +100,11 @@ def recording():
             return fn(*args, **kwargs)
         return wrapper
     saved = {}
-    for name, (m, attr, *_) in STEP_KERNELS.items():
+    targets = [(name, m, attr) for name, (m, attr, *_) in
+               STEP_KERNELS.items()]
+    targets += [(f"{m}.{attr}", m, attr) for m, attrs in STAGE_HELPERS.items()
+                for attr in attrs if hasattr(modules[m], attr)]
+    for name, m, attr in targets:
         saved[m, attr] = getattr(modules[m], attr)
         setattr(modules[m], attr, wrap(saved[m, attr], name))
     try:
@@ -158,6 +181,59 @@ def device_ms(torch, run, kernel, n=5):
     return mine / 1e3 / n, other / 1e3 / n
 
 
+def mcica_stage(torch, calls, m):
+    """Scheme m's ("lw" or "sw") McICA stage on the recorded inputs, as
+    one callable: its kernel's wrapper, fed as the scheme fed it."""
+    fn, a, kw = calls["mcica_optics_lw" if m == "lw" else "mcica_optics_sw"]
+    if f"{m}.subcolumn_keys" not in calls:
+        return lambda: fn(*a, **kw)
+    keys, ka, kkw = calls[f"{m}.subcolumn_keys"]
+    if m == "lw":
+        return lambda: fn(keys(*ka, **kkw), *a[1:], **kw)
+    planes, pa, pkw = calls["sw.band_optics_coeffs_sw"]
+    return lambda: fn(keys(*ka, **kkw), *a[1:7],
+                      torch.stack(planes(*pa, **pkw)), *a[8:], **kw)
+
+
+def profile_per_call(torch, run, n=5, top=0):
+    """(device ms, device launches) per call of run(), torch.profiler
+    over n calls; with top > 0 also the top device kernels by time, as
+    [name, ms, launches] per call."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.device_time_total > 0]
+    totals = (sum(e.device_time_total for e in rows) / 1e3 / n,
+              sum(e.count for e in rows) / n)
+    if not top:
+        return totals
+    rows.sort(key=lambda e: -e.device_time_total)
+    return totals + ([[e.key[:90], e.device_time_total / 1e3 / n,
+                       e.count / n] for e in rows[:top]],)
+
+
+def wall_ms(torch, run, k, rounds):
+    """Median host-clock time of run() between two synchronisations, over
+    k x rounds runs after a warm-up, ms."""
+    import time
+    run()
+    times = []
+    for _ in range(k * rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -195,11 +271,14 @@ def main(argv=None):
               for d in (DOY, DOY + 0.01)]
     nlit, ncld = (None if any(b[i] is None for b in bounds)
                   else max(b[i] for b in bounds) for i in (0, 1))
+    mods = dict(sw=swm.RRTMGSW.from_reference_tables(dev),
+                lw=lwm.RRTMGLW.from_reference_tables(dev))
+
+    def refresh():
+        return radiation_refresh(inp, DOY, UTC, config=cfg, ict=ict,
+                                 icb=icb, sw_nlit=nlit, sw_ncld=ncld, **mods)
     with recording() as calls:
-        radiation_refresh(inp, DOY, UTC, config=cfg, ict=ict, icb=icb,
-                          sw_nlit=nlit, sw_ncld=ncld,
-                          sw=swm.RRTMGSW.from_reference_tables(dev),
-                          lw=lwm.RRTMGLW.from_reference_tables(dev))
+        refresh()
         torch.cuda.synchronize()
 
     out = dict(label=args.label, card=smi.splitlines()[0])
@@ -214,6 +293,16 @@ def main(argv=None):
             sync_free=sync_free(torch, run))
         out[name]["kernel_ms"], out[name]["other_device_ms"] = device_ms(
             torch, run, STEP_KERNELS[name][3])
+    for m in ("lw", "sw"):
+        run = mcica_stage(torch, calls, m)
+        out[f"{m}_mcica_stage"] = dict(ms=median_ms(torch, run, args.k,
+                                                    args.rounds))
+        (out[f"{m}_mcica_stage"]["device_ms"],
+         out[f"{m}_mcica_stage"]["launches"]) = profile_per_call(torch, run)
+    out["refresh"] = dict(wall_ms=wall_ms(torch, refresh, args.k,
+                                          args.rounds))
+    (out["refresh"]["device_ms"], out["refresh"]["launches"],
+     out["refresh"]["top"]) = profile_per_call(torch, refresh, top=12)
     print(json.dumps(out))
 
 

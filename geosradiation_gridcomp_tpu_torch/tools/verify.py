@@ -28,7 +28,12 @@ place of the jnp oracles, on the scene.example_inputs scene (seed 0) at
   mcica_raw_vs_lw_fused.*: the port's own gate: K7's draws with the exact
       table reproduce K1's cloudy mask exactly and its cloud optical
       depth to relmax < 1e-6 on the same seeds (the reference shares its
-      draw code between the two kernels for this property).
+      draw code between the two kernels for this property). K7 takes
+      ops.mcica.subcolumn_keys; K1 derives its subkeys from play in its
+      prologue, so the gate also holds those to subcolumn_keys;
+  mcica_raw_vs_sw_fused.cloudy_mismatches: the same for K2 and the SW
+      seed order, on 112 subcolumns: K7's draws from the SW subkeys with
+      the exact table reproduce K2's cloudy mask exactly.
 
 relmax is max|a - b| / max|b| (verify_tpu.py:33-36). The report (every
 gate's error, tolerance and verdict, the sizes and the card) goes to
@@ -47,7 +52,6 @@ import torch
 from ..models.rrtmg import lw as lwm
 from ..models.rrtmg import sw as swm
 from ..models.rrtmg.cldprmc_lw import band_abs_coeffs_lw, cldprmc_lw
-from ..models.rrtmg.cldprmc_sw import band_optics_coeffs_sw
 from ..models.rrtmg.rtrnmc import rtrnmc
 from ..models.rrtmg.rtrnmc_cuda import rtrnmc_fast
 from ..models.rrtmg.setcoef_lw import setcoef_lw
@@ -60,7 +64,8 @@ from ..models.rrtmg.taumol_sw import sfluxzen_only, taumol_sw
 from ..models.rrtmg.taumol_sw_cuda import taumol_sw_fast
 from ..ops import mcica
 from ..ops.mcica_cuda import (mcica_optics_lw, mcica_optics_lw_plain,
-                              mcica_optics_sw_plain, mcica_subcols_raw)
+                              mcica_optics_sw, mcica_optics_sw_plain,
+                              mcica_subcols_raw)
 from ..ops.zcw_fit import zcw_eval, zcw_fit
 from ..scene import example_inputs
 
@@ -80,7 +85,7 @@ def relmax(a, b, floor=1e-6):
 def lw_setup(dev, ncol, nlev=72):
     """The LW state of the suite, as verify_tpu.py:84-111 forms it: the
     scene, its derived fields, setcoef_lw with dF/dTs, the plain taumol
-    and K1's arguments. Returns a dict."""
+    K1's arguments and the subkeys K7 takes. Returns a dict."""
     inp = example_inputs(ncol, nlev, seed=0, device=dev)
     lw = lwm.RRTMGLW.from_reference_tables(dev)
     play = 0.01 * 0.5 * (inp.ple[:, 1:] + inp.ple[:, :-1])
@@ -105,12 +110,13 @@ def lw_setup(dev, ncol, nlev=72):
     alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
     sigcls = mcica._sigma_class(inp.fcld)
     absi, absl = band_abs_coeffs_lw(inp.ri, inp.rl, lw.cloud_tables)
-    k1 = (mcica.subcolumn_keys(play), alpha, rcorr, inp.fcld, ciwp, clwp,
-          sigcls, absi.contiguous(), absl.contiguous(), lw.zcw_cols(1))
+    k1 = (play, alpha, rcorr, inp.fcld, ciwp, clwp, sigcls,
+          absi.contiguous(), absl.contiguous(), lw.zcw_cols(1))
     return dict(inp=inp, lw=lw, play=play, plev=plev, tlev=tlev, zm=zm,
                 emis=emis, h2o=h2o, o3=o3, c=c, gases=gases, ciwp=ciwp,
                 clwp=clwp, coefs=coefs, taug=taug, pfracs=pfracs,
-                alpha=alpha, rcorr=rcorr, sigcls=sigcls, k1=k1)
+                alpha=alpha, rcorr=rcorr, sigcls=sigcls, k1=k1,
+                keys=mcica.subcolumn_keys(play))
 
 
 def planck_args(s):
@@ -186,11 +192,9 @@ def run_gates(dev, ncol, nlev=72, log=print):
     tg_p, tr_p = taumol_sw_fast(scoefs, sw.taumol_tables)
     gate("taumol_sw_pallas.taug", relmax(tg_p, tg_s), 5e-4)
     gate("taumol_sw_pallas.taur", relmax(tr_p, tr_s), 5e-4)
-    coeffs = torch.stack(band_optics_coeffs_sw(inp.ri, inp.rl,
-                                               sw.cloud_tables)).contiguous()
-    tc, sc, ac, cy, _ = mcica_optics_sw_plain(
-        mcica.subcolumn_keys(play, swm.SEED_ORDER_SW), *s["k1"][1:7],
-        coeffs, sw.zcw_cols(1), **mc)
+    k2 = (*s["k1"][:7], inp.ri, inp.rl, sw.cloud_pack(3), sw.zcw_cols(1))
+    mc_sw = dict(mc, seed_order=swm.SEED_ORDER_SW)
+    tc, sc, ac, cy, _ = mcica_optics_sw_plain(*k2, **mc_sw)
     mu0 = torch.clamp(torch.cos(inp.lats), 0.05, 1.0)
     albdir = inp.albvr[:, None].expand(ncol, 14).contiguous()
     albdif = inp.albvf[:, None].expand(ncol, 14).contiguous()
@@ -227,8 +231,8 @@ def run_gates(dev, ncol, nlev=72, log=print):
     # realization noise alone gives (verify_tpu.py:194-215)
     noise = []
     for so in ((1, 2, 3, 0), (2, 3, 0, 1), (3, 0, 1, 2)):
-        tau_n, cloudy_n, _ = mcica_optics_lw_plain(
-            mcica.subcolumn_keys(play, so), *s["k1"][1:], **mc)
+        tau_n, cloudy_n, _ = mcica_optics_lw_plain(*s["k1"], seed_order=so,
+                                                   **mc)
         out_n = rtrnmc(emis, taug, pfracs, cloudy_n, tau_n,
                        *planck_args(s), dudts=True)
         noise.append({k: out_n[k].double().mean(0) for k in ("uflx", "dflx")})
@@ -267,7 +271,7 @@ def run_gates(dev, ncol, nlev=72, log=print):
         gate(f"clearsky_e2e_sw.{k}.max", float(e.max()), 5e-4)
 
     # ---- same-draws zcw A/B on K7: polynomial fit vs exact table ------
-    cldy_raw, v3 = mcica_subcols_raw(*s["k1"][:4], nsub=140)
+    cldy_raw, v3 = mcica_subcols_raw(s["keys"], *s["k1"][1:4], nsub=140)
     cls = s["sigcls"][:, :, None]
     zcws = dict(fit=zcw_eval(v3, (cls == 0, cls == 1), zcw_fit(1)),
                 exact=mcica.zcw_lookup_class(v3, cls.expand_as(v3),
@@ -287,6 +291,14 @@ def run_gates(dev, ncol, nlev=72, log=print):
     gate("mcica_raw_vs_lw_fused.cloudy_mismatches",
          float((cloudy_ex != cl1).sum()), 0.5)
     gate("mcica_raw_vs_lw_fused.taucmc", relmax(tau_ex, t1), 1e-6)
+    cldy_sw, v3_sw = mcica_subcols_raw(mcica.subcolumn_keys(
+        play, swm.SEED_ORDER_SW), *s["k1"][1:4], nsub=112)
+    zcw_sw = mcica.zcw_lookup_class(v3_sw, cls.expand_as(v3_sw),
+                                    sw.zcw_cols(1))
+    cy_k2 = mcica_optics_sw(*k2, **mc_sw)[3]
+    gate("mcica_raw_vs_sw_fused.cloudy_mismatches",
+         float((ab_paths(cldy_sw, zcw_sw, s["ciwp"], s["clwp"])[0]
+                != cy_k2).sum()), 0.5)
 
     report["ok"] = all(g["pass"] for g in report["gates"].values())
     return report

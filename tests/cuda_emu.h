@@ -133,6 +133,8 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdividef(float a, float b) { return a / b; }
+// truncation toward zero; the kernels convert only values in [0, 2^32)
+inline uint32_t __float2uint_rz(float x) { return static_cast<uint32_t>(x); }
 
 template <typename K>
 struct EmuLaunch {

@@ -7,16 +7,18 @@ pins jax to 8 virtual CPU devices):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances (relmax = max|a-b| / max|b|): K1 and K2 masks and counts
-exact, cloud optics <= 1e-5; K3 and K5 (per band, also on ragged tiles),
+exact, cloud optics <= 1e-5 (K2 for every iceflag and condensate PDF;
+K1 for the seed orders of tools/verify.py too, its subkeys derived in the
+kernel); K3 and K5 (per band, also on ragged tiles),
 K4 (also at other shapes, and equal to itself over two runs) and K6 <=
 5e-4 (the
 reference's kernel-parity gate, tools/verify_tpu.py:115-128); the LW
 refresh <= 5e-5 (the LW end-to-end gate); the SW state of the combined
 step <= 5e-4 (the SW end-to-end gate, tools/verify_tpu.py:279-281). K7,
 P1 and both P2 kernels exact; P3's full variant equal to K3 bit for bit,
-every variant <= 5e-4 per band (K3's gate). K4, K5 and K6's wrappers
-run under torch.cuda.set_sync_debug_mode("error"): none synchronises the
-stream.
+every variant <= 5e-4 per band (K3's gate). K1, K2, K4, K5 and K6's
+wrappers run under torch.cuda.set_sync_debug_mode("error"): none
+synchronises the stream.
 """
 
 import pytest
@@ -31,7 +33,7 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
     band_abs_coeffs_lw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_sw import \
-    band_optics_coeffs_sw
+    CloudPackSW
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc_cuda import \
     rtrnmc_fast
@@ -86,7 +88,7 @@ def case(dev):
     ciwp, clwp = rad._incloud_paths(inp)
     alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
     absi, absl = band_abs_coeffs_lw(inp.ri, inp.rl, lw.cloud_tables)
-    k1 = (mcica.subcolumn_keys(play), alpha, rcorr, inp.fcld, ciwp, clwp,
+    k1 = (play, alpha, rcorr, inp.fcld, ciwp, clwp,
           mcica._sigma_class(inp.fcld), absi.contiguous(), absl.contiguous(),
           lw.zcw_cols(1))
     tlev = lwm.level_temperatures(play, inp.t, inp.ple * 0.01, inp.tsinst)
@@ -97,14 +99,15 @@ def case(dev):
                        torch.full_like(z, 0.2095), z, inp.cfc11, inp.cfc12,
                        inp.hcfc22, z, lw.planck_tables)
     sw = swm.RRTMGSW.from_reference_tables(dev)
-    coeffs = torch.stack(band_optics_coeffs_sw(inp.ri, inp.rl,
-                                               sw.cloud_tables)).contiguous()
-    k2 = (mcica.subcolumn_keys(play, swm.SEED_ORDER_SW), *k1[1:7], coeffs)
+    # liquid radii below 2.5 um in cloudy cells: the ssa overshoot clamp
+    rel = inp.rl.clone()
+    rel[:8, 40:44] = torch.tensor([1.1, 1.35, 1.6, 2.3], device=dev)
+    k2 = (*k1[:7], inp.ri, rel, sw.cloud_pack(3))
     swcoefs = setcoef_sw(play, inp.t, inp.ple * 0.01, h2o, o3, inp.co2,
                          inp.ch4, torch.full_like(z, 0.2095),
                          sw.reference_tables)
-    return dict(inp=inp, lw=lw, k1=k1, emis=emis, coefs=coefs, sw=sw, k2=k2,
-                swcoefs=swcoefs)
+    return dict(inp=inp, lw=lw, k1=k1, keys=mcica.subcolumn_keys(play),
+                emis=emis, coefs=coefs, sw=sw, k2=k2, swcoefs=swcoefs)
 
 
 @pytest.mark.parametrize("inhm", [0, 1, 2])
@@ -114,6 +117,19 @@ def test_k1_matches_plain(case, inhm):
     args[-1] = case["lw"].zcw_cols(inhm)
     a = mcica_optics_lw(*args, **kw)
     b = mcica_optics_lw_plain(*args, **kw)
+    assert torch.equal(a[1], b[1])
+    assert torch.equal(a[2], b[2])
+    assert relmax(a[0], b[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("seed_order", [(3, 2, 1, 0), (1, 2, 3, 0),
+                                        (2, 3, 0, 1), (3, 0, 1, 2)], ids=str)
+def test_k1_seed_orders(case, seed_order):
+    """K1's in-kernel subkeys in the other orders: the twin's realization
+    (ops.mcica.subcolumn_keys) exactly."""
+    kw = dict(cloud_mh=30, cloud_lm=50, seed_order=seed_order)
+    a = mcica_optics_lw(*case["k1"], **kw)
+    b = mcica_optics_lw_plain(*case["k1"], **kw)
     assert torch.equal(a[1], b[1])
     assert torch.equal(a[2], b[2])
     assert relmax(a[0], b[0]) <= 1e-5
@@ -220,20 +236,28 @@ def test_k4_run_to_run(case):
         assert torch.equal(a[k], again[k]), k
 
 
+def _k2_kw(inhm=1):
+    return dict(cloud_mh=30, cloud_lm=50, inhm=inhm,
+                seed_order=swm.SEED_ORDER_SW)
+
+
 def test_wrappers_do_not_synchronise(case, dev):
-    """K4, K5 and K6's wrappers copy nothing from the host per call: under
-    set_sync_debug_mode("error") a synchronising call raises."""
+    """K1, K2, K4, K5 and K6's wrappers copy nothing from the host per
+    call: under set_sync_debug_mode("error") a synchronising call
+    raises."""
     k4 = _k4_case_args(case)
     tg, tr = taumol_sw(case["swcoefs"], case["sw"].taumol_tables)
-    tau, ssa, asm, cldy, _ = mcica_optics_sw_plain(
-        *case["k2"], case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+    k2 = (*case["k2"], case["sw"].zcw_cols(1))
+    tau, ssa, asm, cldy, _ = mcica_optics_sw_plain(*k2, **_k2_kw())
     gen = torch.Generator(dev).manual_seed(8)
     rnd = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
         *shape, device=dev, generator=gen)
     k6 = (case["swcoefs"], tg, tr, rnd(0.1, 20.0, NCOL, 112),
           rnd(-0.2, 1.0, NCOL), rnd(0.05, 0.3, NCOL, 14),
           rnd(0.05, 0.3, NCOL, 14), cldy, tau, ssa, asm)
-    calls = ((rtrnmc_fast, k4, {}),
+    calls = ((mcica_optics_lw, case["k1"], dict(cloud_mh=30, cloud_lm=50)),
+             (mcica_optics_sw, k2, _k2_kw()),
+             (rtrnmc_fast, k4, {}),
              (taumol_sw_fast, (case["swcoefs"], case["sw"].taumol_tables),
               {}),
              (spcvmc_fast, k6, dict(ncld=40)))
@@ -264,10 +288,27 @@ def test_refresh_runs_the_kernels(case):
 
 @pytest.mark.parametrize("inhm", [0, 1, 2])
 def test_k2_matches_plain(case, inhm):
-    kw = dict(cloud_mh=30, cloud_lm=50, inhm=inhm)
-    args = (*case["k2"], case["sw"].zcw_cols(inhm))
-    a = mcica_optics_sw(*args, **kw)
-    b = mcica_optics_sw_plain(*args, **kw)
+    _k2_matches_plain(case, case["k2"], inhm)
+
+
+@pytest.mark.parametrize("iceflag", [1, 2])
+@pytest.mark.parametrize("inhm", [0, 2])
+def test_k2_other_iceflags(case, iceflag, inhm):
+    _k2_matches_plain(case, (*case["k2"][:-1],
+                             case["sw"].cloud_pack(iceflag)), inhm)
+
+
+@pytest.mark.parametrize("ncol", [1, 33])
+def test_k2_odd_columns(case, ncol):
+    """A last block of two columns half empty."""
+    k2 = (*(x[:ncol].contiguous() for x in case["k2"][:-1]), case["k2"][-1])
+    _k2_matches_plain(case, k2, 1)
+
+
+def _k2_matches_plain(case, k2, inhm):
+    args = (*k2, case["sw"].zcw_cols(inhm))
+    a = mcica_optics_sw(*args, **_k2_kw(inhm))
+    b = mcica_optics_sw_plain(*args, **_k2_kw(inhm))
     assert torch.equal(a[3], b[3])
     assert torch.equal(a[4], b[4])
     for x, y in zip(a[:3], b[:3]):
@@ -302,7 +343,7 @@ def test_k5_ragged_tiles(case, shape):
 @pytest.mark.parametrize("aerosol,ncld", [(False, None), (True, 40)])
 def test_k6_matches_plain(case, dev, aerosol, ncld):
     tau, ssa, asm, cldy, _ = mcica_optics_sw_plain(
-        *case["k2"], case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+        *case["k2"], case["sw"].zcw_cols(1), **_k2_kw())
     tg, tr = taumol_sw(case["swcoefs"], case["sw"].taumol_tables)
     gen = torch.Generator(dev).manual_seed(4)
     rnd = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
@@ -326,7 +367,7 @@ def test_k6_ncld(case, dev, aerosol, ncld):
     """K6 with no, some and every column cloudy: within 5e-4 of its twin,
     deterministic over two runs."""
     tau, ssa, asm, cldy, _ = mcica_optics_sw_plain(
-        *case["k2"], case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+        *case["k2"], case["sw"].zcw_cols(1), **_k2_kw())
     tg, tr = taumol_sw(case["swcoefs"], case["sw"].taumol_tables)
     gen = torch.Generator(dev).manual_seed(7)
     rnd = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
@@ -376,9 +417,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     args[-1] = args[-1][:2]
     with pytest.raises(ValueError):
         mcica_optics_lw(*args, cloud_mh=30, cloud_lm=50)
+    pack = case["k2"][-1]
+    for bad in (pack._replace(pack=pack.pack[:-14]), pack._replace(iceflag=4),
+                CloudPackSW(pack.pack, 2, pack.nice, pack.nliq)):
+        with pytest.raises(ValueError):
+            mcica_optics_sw(*case["k2"][:-1], bad, case["sw"].zcw_cols(1),
+                            **_k2_kw())
     with pytest.raises(ValueError):
-        mcica_optics_sw(*case["k2"][:-1], case["k2"][-1][:6],
-                        case["sw"].zcw_cols(1), cloud_mh=30, cloud_lm=50)
+        mcica_optics_sw(*case["k2"], case["sw"].zcw_cols(1),
+                        **{**_k2_kw(), "seed_order": (0, 1, 2, 4)})
     # K5 reads the fields in place: an index of another type or a field
     # that is not contiguous is refused, not copied
     sc, stabs = case["swcoefs"], case["sw"].taumol_tables
@@ -394,7 +441,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
 
 
 def test_k7_equals_plain(case):
-    args = case["k1"][:4]
+    args = (case["keys"], *case["k1"][1:4])
     a = mcica_subcols_raw(*args, nsub=140)
     b = mcica_subcols_raw_plain(*args, nsub=140)
     for x, y in zip(a, b):

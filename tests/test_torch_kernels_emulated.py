@@ -9,7 +9,11 @@ This checks the kernels' logic here; only the card can check that nvcc
 builds them and how fast they run (chip_smoke.py, tests/test_torch_cuda.py).
 
 Tolerances: K1 and K2 masks and counts exact, K1 optics exact (it uses
-the twin's rounding: __fmul_rn/__fadd_rn), K2 optics relmax <= 1e-6; K3
+the twin's rounding: __fmul_rn/__fadd_rn), K2 optics relmax <= 1e-6 for
+every SW iceflag and condensate PDF (its delta scaling folded into per-band
+coefficients reorders the twin's products by a few ulps); the subkeys K1
+and K2 derive in their prologue (mcica_gen.cuh:column_subkeys) equal
+ops.mcica.subcolumn_keys bit for bit for every seed order the port uses; K3
 and K5 elementwise within 1e-6 relative and K4 relmax <= 1e-6 (g++
 builds with -ffp-contract=off and the same operation order; libm's
 expf/powf may differ from torch's by an ulp). K6 relmax <= 1e-5: an ulp
@@ -41,8 +45,7 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg import taumol_lw_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import taumol_sw_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
     band_abs_coeffs_lw
-from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_sw import \
-    band_optics_coeffs_sw
+from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import seed_order_bits
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
     setcoef_lw
@@ -61,6 +64,21 @@ torch.set_num_threads(1)
 NCOL, NLEV, DOY = 4, 72, 172.0
 MH, LM = 30, 50
 HERE = os.path.dirname(os.path.abspath(__file__))
+# LW, SW and the reseeded orders of tools/verify.py's noise runs
+SEED_ORDERS = ((0, 1, 2, 3), (3, 2, 1, 0), (1, 2, 3, 0), (2, 3, 0, 1),
+               (3, 0, 1, 2))
+# the generator's key prologue alone, run on the host for each column
+KEYS_PROBE = r"""
+#include "mcica_gen.cuh"
+using namespace geosrad;
+extern "C" void column_subkeys_probe(const float* play, uint32_t* keys,
+                                     int ncol, int nlay, int seed_order) {
+    for (int c = 0; c < ncol; ++c)
+        for (int t = 0; t < 4; ++t)
+            column_subkeys(play + static_cast<size_t>(c) * nlay, nlay,
+                           seed_order, t, keys + static_cast<size_t>(c) * 8);
+}
+"""
 
 
 def relmax(a, b):
@@ -84,6 +102,7 @@ def lib(tmp_path_factory):
         text = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(",
                       r"emu_launch(\1, \2)(", text, flags=re.S)
         (out / os.path.basename(src)).write_text(text)
+    (out / "keys_probe.cu").write_text(KEYS_PROBE)
     so = out / "libemu.so"
     cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
            f"-I{out}", "-x", "c++", *sorted(str(p) for p in out.glob("*.cu")),
@@ -111,7 +130,7 @@ def case():
     ciwp, clwp = rad._incloud_paths(inp)
     alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
     absi, absl = band_abs_coeffs_lw(inp.ri, inp.rl, lw.cloud_tables)
-    k1 = (mcica.subcolumn_keys(play), alpha, rcorr, inp.fcld, ciwp, clwp,
+    k1 = (play, alpha, rcorr, inp.fcld, ciwp, clwp,
           mcica._sigma_class(inp.fcld), absi.contiguous(), absl.contiguous())
     tlev = lwm.level_temperatures(play, inp.t, inp.ple * 0.01, inp.tsinst)
     emis = inp.emis[:, None].expand(NCOL, 16).contiguous()
@@ -120,7 +139,40 @@ def case():
                        h2o, o3, inp.co2, inp.ch4, inp.n2o,
                        torch.full_like(z, 0.2095), z + 1e-7, inp.cfc11,
                        inp.cfc12, inp.hcfc22, z + 1e-10, lw.planck_tables)
-    return dict(lw=lw, k1=k1, emis=emis, coefs=coefs, inp=inp)
+    return dict(lw=lw, k1=k1, keys=mcica.subcolumn_keys(play), emis=emis,
+                coefs=coefs, inp=inp)
+
+
+def _probe_keys(lib, play, seed_order):
+    """The subkeys column_subkeys derives, as subcolumn_keys' int64
+    words [ncol, 4, 2]."""
+    play = play.contiguous()
+    out = torch.zeros(play.shape[0] * 8, dtype=torch.int32)
+    lib.column_subkeys_probe(ctypes.c_void_p(play.data_ptr()),
+                             ctypes.c_void_p(out.data_ptr()), play.shape[0],
+                             play.shape[1], seed_order_bits(seed_order))
+    return (out.long() & 0xFFFFFFFF).reshape(-1, 4, 2)
+
+
+@pytest.mark.parametrize("seed_order", SEED_ORDERS, ids=str)
+def test_prologue_keys_equal_subcolumn_keys(lib, case, seed_order):
+    """On the scene's columns and on columns whose lowest four layers are
+    whole Pa (seed 1), a Pa value just below a whole number (seed near
+    2^31), zero and pressures of every magnitude."""
+    rng = np.random.default_rng(11)
+    crafted = rng.uniform(1.0, 1000.0, (6, NLEV)).astype(np.float32)
+    crafted[:, -4:] = np.array([
+        [1000.0, 850.0, 0.01, 1013.25],
+        [0.009999999, 0.0, 500.0, 999.99994],
+        [np.nextafter(np.float32(1.0), np.float32(0.0)), 2.0, 3.5, 7.0],
+        [0.5, 0.25, 0.125, 0.0625],
+        [1045.7, 1e-3, 1e-5, 123.456],
+        [999.9999, 1000.0001, 99.99999, 100.00001]], np.float32)
+    play = torch.cat([case["k1"][0], torch.as_tensor(crafted)])
+    ints = mcica.state_seed_ints(play, seed_order)
+    assert int(ints.min()) == 1 and int(ints.max()) >= 2 ** 31 - 256
+    assert torch.equal(_probe_keys(lib, play, seed_order),
+                       mcica.subcolumn_keys(play, seed_order))
 
 
 @pytest.mark.parametrize("inhm", [0, 1, 2])
@@ -132,6 +184,21 @@ def test_k1_emulated_equals_plain(lib, case, inhm):
     assert 0 < int(b[1].sum()) and int(b[2][3, 0]) == 140
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_k1_emulated_sw_seed_order(lib, case):
+    """K1 seeded in another order draws another realization, still the
+    twin's."""
+    zcw = case["lw"].zcw_cols(1)
+    a = mcica_cuda.launch(lib, *case["k1"], zcw, MH, LM, 1, 1.0e-20,
+                          seed_order=swm.SEED_ORDER_SW)
+    b = mcica_cuda.mcica_optics_lw_plain(*case["k1"], zcw, cloud_mh=MH,
+                                         cloud_lm=LM,
+                                         seed_order=swm.SEED_ORDER_SW)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[0], mcica_cuda.mcica_optics_lw_plain(
+        *case["k1"], zcw, cloud_mh=MH, cloud_lm=LM)[0])
 
 
 @pytest.mark.parametrize("with_taua", [False, True])
@@ -232,31 +299,70 @@ def test_k4_emulated_divergence_and_depth(lib, case, kind):
 
 @pytest.fixture(scope="module")
 def sw_case(case):
-    """The SW kernels' inputs on the same scene: K2's with the SW seed
-    order, setcoef_sw, and K6's optics from the plain twins."""
+    """The SW kernels' inputs on the same scene: K2's (with liquid radii
+    below 2.5 um in cloudy cells of the first three columns, where the
+    liquid ssa overshoot clamp engages), setcoef_sw, and K6's optics from
+    the plain twins."""
     inp = case["inp"]
     sw = swm.RRTMGSW.from_reference_tables("cpu")
     play, h2o, o3 = rad._common_derived(inp)
     zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
     ciwp, clwp = rad._incloud_paths(inp)
     alpha, rcorr = mcica.overlap_params(zm, inp.lats, DOY)
-    coeffs = torch.stack(band_optics_coeffs_sw(inp.ri, inp.rl,
-                                               sw.cloud_tables))
-    k2 = (mcica.subcolumn_keys(play, swm.SEED_ORDER_SW), alpha, rcorr,
-          inp.fcld, ciwp, clwp, mcica._sigma_class(inp.fcld), coeffs)
+    rel = inp.rl.clone()
+    rel[:3, 40:44] = torch.tensor([1.1, 1.35, 1.6, 2.3])
+    # below 2.5 um the interpolation extrapolates from rows 1-2 (fint < 0)
+    ssal = sw.cloud_tables["ssaliq1"]
+    fint = rel[:3, 40:44, None] - 2.5
+    assert bool((ssal[0] + fint * (ssal[1] - ssal[0]) > 1.0).any())
+    k2 = (play, alpha, rcorr, inp.fcld, ciwp, clwp,
+          mcica._sigma_class(inp.fcld), inp.ri, rel)
     coefs = setcoef_sw(play, inp.t, inp.ple * 0.01, h2o, o3, inp.co2,
                        inp.ch4, torch.full_like(play, 0.2095),
                        sw.reference_tables)
     return dict(sw=sw, k2=k2, coefs=coefs)
 
 
+def _k2(sw_case, iceflag, inhm, ncol=NCOL):
+    """K2's arguments and the twin's keywords."""
+    sw = sw_case["sw"]
+    args = (*(x[:ncol] for x in sw_case["k2"]), sw.cloud_pack(iceflag),
+            sw.zcw_cols(inhm))
+    return args, dict(cloud_mh=MH, cloud_lm=LM, inhm=inhm,
+                      seed_order=swm.SEED_ORDER_SW)
+
+
 @pytest.mark.parametrize("inhm", [0, 1, 2])
 def test_k2_emulated_matches_plain(lib, sw_case, inhm):
-    zcw = sw_case["sw"].zcw_cols(inhm)
-    kw = dict(cloud_mh=MH, cloud_lm=LM, inhm=inhm)
-    a = mcica_cuda.launch_sw(lib, *sw_case["k2"], zcw, MH, LM, inhm, 1.0e-20)
-    b = mcica_cuda.mcica_optics_sw_plain(*sw_case["k2"], zcw, **kw)
+    _k2_emulated_matches_plain(lib, sw_case, 3, inhm)
+
+
+@pytest.mark.parametrize("iceflag", [1, 2])
+@pytest.mark.parametrize("inhm", [0, 1, 2])
+def test_k2_emulated_other_iceflags(lib, sw_case, inhm, iceflag):
+    _k2_emulated_matches_plain(lib, sw_case, iceflag, inhm)
+
+
+def _k2_emulated_matches_plain(lib, sw_case, iceflag, inhm):
+    args, kw = _k2(sw_case, iceflag, inhm)
+    a = mcica_cuda.launch_sw(lib, *args, MH, LM, inhm, 1.0e-20,
+                             swm.SEED_ORDER_SW)
+    b = mcica_cuda.mcica_optics_sw_plain(*args, **kw)
     assert 0 < int(b[3].sum()) and int(b[4][3, 0]) == 112
+    assert torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
+    for x, y in zip(a[:3], b[:3]):
+        assert relmax(x, y) <= 1e-6
+
+
+@pytest.mark.parametrize("ncol", [1, 3])
+def test_k2_emulated_part_full_block(lib, sw_case, ncol):
+    """A column count that leaves the last block of two columns half
+    empty."""
+    args, kw = _k2(sw_case, 3, 1, ncol)
+    a = mcica_cuda.launch_sw(lib, *args, MH, LM, 1, 1.0e-20,
+                             swm.SEED_ORDER_SW)
+    b = mcica_cuda.mcica_optics_sw_plain(*args, **kw)
+    assert a[0].shape == (ncol, NLEV, 112)
     assert torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
     for x, y in zip(a[:3], b[:3]):
         assert relmax(x, y) <= 1e-6
@@ -286,8 +392,8 @@ def test_k5_emulated_ragged_tiles(lib, sw_case, shape):
 
 
 def _k6_args(sw_case, aerosol):
-    tau, ssa, asm, cldy, _ = mcica_cuda.mcica_optics_sw_plain(
-        *sw_case["k2"], sw_case["sw"].zcw_cols(1), cloud_mh=MH, cloud_lm=LM)
+    args, kw = _k2(sw_case, 3, 1)
+    tau, ssa, asm, cldy, _ = mcica_cuda.mcica_optics_sw_plain(*args, **kw)
     tg, tr = taumol_sw(sw_case["coefs"], sw_case["sw"].taumol_tables)
     rng = np.random.default_rng(6)
     f = lambda lo, hi, shape: torch.as_tensor(
@@ -328,7 +434,7 @@ def test_k6_emulated_ncld(lib, sw_case, aerosol, ncld):
 
 
 def test_k7_emulated_equals_plain(lib, case):
-    keys, alpha, rcorr, cldf = case["k1"][:4]
+    keys, (alpha, rcorr, cldf) = case["keys"], case["k1"][1:4]
     a = mcica_cuda.launch_raw(lib, keys, alpha, rcorr, cldf, 140)
     b = mcica_cuda.mcica_subcols_raw_plain(keys, alpha, rcorr, cldf, nsub=140)
     assert 0 < int(b[0].sum()) and float(b[1].std()) > 0.1

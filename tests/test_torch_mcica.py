@@ -1,7 +1,8 @@
 """The port's McICA generator and kernel K1's plain twin against the JAX
 CPU oracle on the realistic scene (16 columns x 72 levels).
 
-Masks and clear counts are exact (the threefry stream is bit-identical);
+Masks and clear counts are exact (the threefry stream is bit-identical,
+K1's twin seeding it from play as K1 does);
 water paths and optical depths agree to 1e-6 relmax (max|a-b| / max|b|,
 tools/verify_tpu.py:33-36).
 """
@@ -131,7 +132,7 @@ def test_cldprmc_lw(scene):
 def _k1_args(tt):
     alpha, rcorr = tm.overlap_params(tt["zm"], tt["lats"], DOY)
     absi, absl = band_abs_coeffs_lw(tt["ri"], tt["rl"], lw_cloud_tables("cpu"))
-    return (tm.subcolumn_keys(tt["play"]), alpha, rcorr, tt["fcld"],
+    return (tt["play"], alpha, rcorr, tt["fcld"],
             tt["ciwp"], tt["clwp"], tm._sigma_class(tt["fcld"]),
             absi.contiguous(), absl.contiguous(),
             torch.as_tensor(tm.zcw_class_columns(1)))

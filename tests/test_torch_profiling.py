@@ -212,3 +212,37 @@ def test_kernel_ab_recording_keeps_each_step_kernels_first_call():
             assert torch.equal(x, y), name
     for (m, a), fn in before.items():
         assert getattr(dict(lw=lw, sw=sw)[m], a) is fn
+
+
+def test_kernel_ab_mcica_stage_feeds_the_kernel_as_the_scheme_did():
+    """A checkout whose K1/K2 take play runs the kernel alone; one whose
+    kernels take subkeys and band planes derives them first with the
+    recorded helpers and passes them where the scheme passed them."""
+    seen = []
+
+    def kernel(*a, **kw):
+        seen.append((a, kw))
+        return "out"
+    calls = {"mcica_optics_sw": (kernel, ("play", 1, 2, 3, 4, 5, 6, "rei",
+                                          "rel", "pack", "zcw"), {"x": 1}),
+             "mcica_optics_lw": (kernel, ("play", 1, 2), {"y": 2})}
+    for m, name in (("sw", "mcica_optics_sw"), ("lw", "mcica_optics_lw")):
+        assert kernel_ab.mcica_stage(torch, calls, m)() == "out"
+        assert seen[-1] == calls[name][1:]
+    keys = lambda play, order: ("keys", play, order)
+    planes = (torch.zeros(3), torch.ones(3))
+    calls = {
+        "mcica_optics_sw": (kernel, ("k", 1, 2, 3, 4, 5, 6, "planes", "zcw"),
+                            {"x": 1}),
+        "mcica_optics_lw": (kernel, ("k", 1, 2), {"y": 2}),
+        "sw.subcolumn_keys": (keys, ("play", (3, 2, 1, 0)), {}),
+        "lw.subcolumn_keys": (keys, ("play", (0, 1, 2, 3)), {}),
+        "sw.band_optics_coeffs_sw": (lambda rei, rel, iceflag: planes,
+                                     ("rei", "rel"), {"iceflag": 3})}
+    kernel_ab.mcica_stage(torch, calls, "sw")()
+    a, kw = seen[-1]
+    assert a[0] == ("keys", "play", (3, 2, 1, 0)) and a[1:7] == (
+        1, 2, 3, 4, 5, 6) and a[8:] == ("zcw",) and kw == {"x": 1}
+    assert torch.equal(a[7], torch.stack(planes))
+    kernel_ab.mcica_stage(torch, calls, "lw")()
+    assert seen[-1] == ((("keys", "play", (0, 1, 2, 3)), 1, 2), {"y": 2})

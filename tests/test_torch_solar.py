@@ -9,8 +9,12 @@ Gates (relmax = max|a-b| / max|b|, tools/verify_tpu.py:33-36): every
 SolarState and IrradState field and every export <= 5e-5. The heating
 rates are differences of adjacent level fluxes over dp, which amplifies
 the fluxes' ~1.5e-6 roundoff: below 100 hPa they agree to 6.4e-5
-(measured), gated at 2e-4, under the reference's own 5e-4; above, the
-few-Pa layers near the model top are checked for finiteness only.
+(measured), gated at 2e-4, under the reference's own 5e-4. In the
+reference's form (tests/test_accuracy.py:142-152) every layer's
+flux-divergence error |d dtdt| x dp, the few-Pa layers near the model top
+included, and the relative rate where dp > 100 Pa are held within the
+bounds the 5e-5 flux gates imply (see test_heating_rates_reference_form;
+measured 5.4e-6 and 6.1e-6 K/s Pa against bounds of 6.4e-4 and 6.9e-4).
 """
 
 import dataclasses
@@ -26,6 +30,7 @@ from geosradiation_gridcomp_tpu.config import RadiationConfig, Scheme
 from geosradiation_gridcomp_tpu.driver import astronomy as jast
 from geosradiation_gridcomp_tpu.driver import step as jstep
 from geosradiation_gridcomp_tpu_torch.config import RadiationConfig as TConfig
+from geosradiation_gridcomp_tpu_torch.constants import CP, GRAV
 from geosradiation_gridcomp_tpu_torch.config import Scheme as TScheme
 from geosradiation_gridcomp_tpu_torch.driver import astronomy as tast
 from geosradiation_gridcomp_tpu_torch.driver import radiation as trad
@@ -168,6 +173,31 @@ def test_radiation_update(runs, run):
     assert torch.isfinite(tu["dtdt"]).all()
     assert relmax(tu["dtdt"].numpy()[low], np.asarray(ju["dtdt"])[low]) \
         <= 2e-4
+
+
+@pytest.mark.parametrize("run", ["packed", "aerosol"])
+def test_heating_rates_reference_form(runs, run):
+    """dtdt = GRAV / (CP dp) times the SW+LW net flux difference across a
+    layer, so |error| x dp is GRAV / CP times the error of two flux
+    differences: with fsw and flw within relmax 5e-5 of the oracle's it is
+    at most B = 2 (5e-5 max|fsw| + 5e-5 max|flw|) GRAV / CP in every
+    layer; where dp > 100 Pa the rate's error is at most B / 100 Pa, the
+    relative bound against the largest rate there."""
+    _, ti, _, out = runs
+    _, _, (ju, tu) = out[run]
+    a = tu["dtdt"].double().numpy()
+    b = np.asarray(ju["dtdt"], np.float64)
+    ple = ti.ple.double().numpy()
+    dp = ple[:, 1:] - ple[:, :-1]
+    div = 2.0 * 5e-5 * (np.abs(np.asarray(ju["sw"]["fsw"])).max()
+                        + np.abs(np.asarray(ju["lw"]["flw"])).max()) \
+        * GRAV / CP
+    err = np.abs(a - b)
+    assert (err * dp).max() <= div
+    deep = dp > 100.0
+    top = np.abs(b[deep]).max()
+    assert deep.sum() >= NCOL * 20
+    assert err[deep].max() / top <= div / (100.0 * top)
 
 
 def test_packing_zeroes_night_columns(runs):

@@ -3,7 +3,11 @@ scene (8 columns x 72 levels), same inputs on both sides.
 
 Tolerances (relmax = max|a-b| / max|b|, tools/verify_tpu.py:33-36):
 McICA with the SW seed order exact (masks and clear counts); cloud optics
-<= 1e-6 for iceflag 1, 2 and 3; setcoef integer fields equal, floats
+<= 1e-6 for iceflag 1, 2 and 3; K2's twin (seeded from play, the band
+optics from the packed tables) against the oracle's composition exact in
+masks and counts and <= 1e-6 in the optics for every iceflag and
+condensate PDF, with liquid radii below 2.5 um in cloudy cells (the ssa
+overshoot clamp); setcoef integer fields equal, floats
 <= 1e-6 except the four fac weights (<= 5e-6: XLA's float32 log is one
 ulp off for ~5 % of the pressures, see test_torch_lw_optics.py); taug,
 taur and the solar source <= 5e-6 per band against both of the oracle's
@@ -81,7 +85,7 @@ def scene():
     cldy, ciwp_s, clwp_s = jm.generate_stochastic_clouds(
         zm, inp.lats, DOY, play, inp.fcld, ciwp, clwp, 1.0e-20,
         nsubcol=112, inhm=1, seed_order=(3, 2, 1, 0))
-    j = dict(inp=inp, play=play, h2o=h2o, o3=o3,
+    j = dict(inp=inp, play=play, zm=zm, paths=(ciwp, clwp), h2o=h2o, o3=o3,
              clouds=(cldy, ciwp_s, clwp_s),
              counts=np.asarray(jm.clear_counts_three_band(cldy, MH, LM)))
     tt = {k: t(v) for k, v in (("play", play), ("zm", zm), ("ciwp", ciwp),
@@ -91,14 +95,12 @@ def scene():
     return j, tt
 
 
-def _k2_args(tt, sw, iceflag=3):
+def _k2_args(tt, sw, iceflag=3, inhm=1, rel=None):
     alpha, rcorr = tm.overlap_params(tt["zm"], tt["lats"], DOY)
-    coeffs = torch.stack(band_optics_coeffs_sw(tt["ri"], tt["rl"],
-                                               sw.cloud_tables,
-                                               iceflag=iceflag))
-    return (tm.subcolumn_keys(tt["play"], SEED_ORDER_SW), alpha, rcorr,
-            tt["fcld"], tt["ciwp"], tt["clwp"], tm._sigma_class(tt["fcld"]),
-            coeffs, sw.zcw_cols(1))
+    return (tt["play"], alpha, rcorr, tt["fcld"], tt["ciwp"], tt["clwp"],
+            tm._sigma_class(tt["fcld"]), tt["ri"],
+            tt["rl"] if rel is None else rel, sw.cloud_pack(iceflag),
+            sw.zcw_cols(inhm))
 
 
 def test_mcica_sw_seed_order_exact(scene):
@@ -146,7 +148,8 @@ def test_k2_plain_matches_oracle_composition(scene, sw, iceflag):
     them."""
     j, tt = scene
     tau, ssa, asm, cldy, counts = mcica_optics_sw_plain(
-        *_k2_args(tt, sw, iceflag), cloud_mh=MH, cloud_lm=LM, col_block=3)
+        *_k2_args(tt, sw, iceflag), cloud_mh=MH, cloud_lm=LM,
+        seed_order=SEED_ORDER_SW, col_block=3)
     ref = jcld.cldprmc_sw(*j["clouds"], j["inp"].ri, j["inp"].rl,
                           iceflag=iceflag)
     swap = lambda x: np.swapaxes(np.asarray(x), -1, -2)
@@ -156,11 +159,58 @@ def test_k2_plain_matches_oracle_composition(scene, sw, iceflag):
         assert relmax(a, swap(b)) <= 1e-6
 
 
+@pytest.fixture(scope="module")
+def oracle_grid(scene):
+    """The oracle's SW subcolumns for each condensate PDF, and liquid
+    radii with cells below 2.5 um where there is liquid cloud."""
+    j, tt = scene
+    inp = j["inp"]
+    rel = np.array(inp.rl)
+    cells = np.argwhere((np.asarray(inp.fcld) > 0.0)
+                        & (np.asarray(j["inp"].ql) > 0.0))
+    assert len(cells) >= 8
+    for (c, l), r in zip(cells[::max(1, len(cells) // 8)][:8],
+                         (1.05, 1.2, 1.35, 1.5, 1.7, 1.9, 2.2, 2.45)):
+        rel[c, l] = r
+    clouds = {}
+    for inhm in (0, 1, 2):
+        cldy, ci, cl = jm.generate_stochastic_clouds(
+            j["zm"], inp.lats, DOY, j["play"], inp.fcld, *j["paths"],
+            1.0e-20, nsubcol=112, inhm=inhm, seed_order=(3, 2, 1, 0))
+        clouds[inhm] = (cldy, ci, cl,
+                        np.asarray(jm.clear_counts_three_band(cldy, MH, LM)))
+    return rel.astype(np.float32), clouds
+
+
+@pytest.mark.parametrize("iceflag", [1, 2, 3])
+@pytest.mark.parametrize("inhm", [0, 1, 2])
+def test_k2_twin_matches_oracle_grid(scene, sw, oracle_grid, inhm,
+                                     iceflag):
+    """K2's twin on its kernel's arguments against generate +
+    clear counts + cldprmc_sw of the oracle, every iceflag and condensate
+    PDF, with the liquid ssa overshoot clamp engaged."""
+    j, tt = scene
+    rel, clouds = oracle_grid
+    cldy_j, ci_j, cl_j, counts_j = clouds[inhm]
+    tau, ssa, asm, cldy, counts = mcica_optics_sw_plain(
+        *_k2_args(tt, sw, iceflag, inhm, t(rel)), cloud_mh=MH, cloud_lm=LM,
+        seed_order=SEED_ORDER_SW, inhm=inhm, col_block=3)
+    ref = jcld.cldprmc_sw(cldy_j, ci_j, cl_j, j["inp"].ri, jnp.asarray(rel),
+                          iceflag=iceflag)
+    swap = lambda x: np.swapaxes(np.asarray(x), -1, -2)
+    np.testing.assert_array_equal(cldy.numpy(), swap(cldy_j))
+    np.testing.assert_array_equal(counts.numpy(), counts_j)
+    assert 0 < int(cldy.sum()) and (counts_j[:, 0] < 112).any()
+    for a, b in zip((tau, ssa, asm), ref):
+        assert relmax(a, swap(b)) <= 1e-6
+
+
 def test_k2_wrapper_on_cpu_is_plain(scene, sw):
     _, tt = scene
     args = _k2_args(tt, sw)
-    a = mcica_optics_sw(*args, cloud_mh=MH, cloud_lm=LM)
-    b = mcica_optics_sw_plain(*args, cloud_mh=MH, cloud_lm=LM)
+    kw = dict(cloud_mh=MH, cloud_lm=LM, seed_order=SEED_ORDER_SW)
+    a = mcica_optics_sw(*args, **kw)
+    b = mcica_optics_sw_plain(*args, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

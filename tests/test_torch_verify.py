@@ -36,7 +36,7 @@ def report():
 
 def test_every_gate_passes(report):
     assert report["ncol"] == NCOL and report["nlev"] == 72
-    assert len(report["gates"]) == 39
+    assert len(report["gates"]) == 40
     failed = [k for k, g in report["gates"].items() if not g["pass"]]
     assert not failed and report["ok"]
 
@@ -45,7 +45,7 @@ def _jax_ab_delta():
     """zcw_fit_ab_same_rng's delta by the JAX functions, on the port's
     draws and gas optics."""
     s = verify.lw_setup(CPU, NCOL)
-    cloudy, v3 = mcica_subcols_raw(*s["k1"][:4], nsub=140)
+    cloudy, v3 = mcica_subcols_raw(s["keys"], *s["k1"][1:4], nsub=140)
     n = lambda x: jnp.asarray(x.numpy())
     sig = s["sigcls"].numpy()[:, :, None]
     v = n(v3)
