@@ -52,7 +52,33 @@ nvcc per source side by side, then:
 5. profiling path: the three profiling entry points (fused_mcica_check
    at 1024 columns, gather_micro at its default size, taumol_lw_bisect
    at 1024 x 72), each raising on a failed check; P1, both P2 kernels and
-   P3 must launch there.
+   P3 must launch there;
+6. rats phase: the RATS diagnostics (the LW re-solved with each of the 8
+   trace gases zeroed in turn, driver/diagnostics.py:rats_refresh) at
+   8192 x 72 with the step's ict/icb, through the kernels: K1, K3 and K4
+   must launch exactly 8 times each and nothing else; K3 within relmax
+   5e-4 of its twin in every band on each gas's inputs (the zeroed gas
+   drives taumol's specparm to its edges); every gas's RatsState within
+   relmax 5e-5 of the plain twins on the card (the LW gate); rats_update's CO2 and CH4 TOA forcing, each column mean
+   positive and CO2's above CH4's; the refresh's wall time (median of 5)
+   and device time (CUDA events);
+7. chou phase: radiation_refresh + radiation_update with the Chou-Suarez
+   SW and LW schemes at 8192 x 72 on the card, where no CUDA kernel of
+   the port may launch; every SolarState and IrradState field and every
+   flux export within relmax 5e-5 of the same functions on the CPU on the
+   first 256 columns, the heating rates in the reference's form
+   (heating_rate_gates at those flux gates); SW net / TOA insolation in
+   [0, 1] and OLR in 120-340 W/m^2; the wall time (median of 3) and the
+   peak device memory;
+8. driver phase: a RadiationClock (30 min heartbeat, hourly refresh) for
+   4 heartbeats at 8192 x 72 with the kernels: validate_inputs and
+   radiation_refresh + rats_refresh on the alarm, radiation_update +
+   rats_update every heartbeat, check_finite on every new state and
+   export; then the same run stopped after heartbeat 2, checkpointed
+   (build/driver_checkpoint.npz) and restarted from
+   load_checkpoint(device="cuda"): every export of the restarted run
+   bitwise equal to the uninterrupted run's; the update's wall time per
+   heartbeat.
 
 Then it checks that neither jax nor any module of the reference package
 geosradiation_gridcomp_tpu was loaded.
@@ -65,12 +91,15 @@ the launches per refresh and the device's idle share (torch.profiler),
 a check that the refresh calls neither ops.mcica.subcolumn_keys nor
 band_optics_coeffs_sw (K1 and K2 derive the subkeys, K2 the SW band
 optics, on the card), and the solar_refresh and irrad_refresh stages
-alone, beside subcolumn_keys, now off the kernel path (CUDA events).
+alone, beside subcolumn_keys, now off the kernel path (CUDA events);
+and the same device profile of the RATS refresh, the Chou refresh +
+update and a heartbeat's radiation_update + rats_update.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
-profiling; launches_per_refresh for the step kernels), error, times,
-bound and library time, and as its last line
+profiling; launches_per_refresh for the step kernels; launches_by_path
+on every path that launched it, K1, K3 and K4 also on rats), error,
+times, bound and library time, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
 """
@@ -681,10 +710,316 @@ def step_phase(torch, dev):
                           ncld=ncld, mods=mods, refresh=refresh), calls
 
 
-def profile_phase(torch, step, nwall=30, nprof=5):
-    """--profile: where the time of the full-width refresh goes."""
+def rats_phase(torch, step, profile=False):
+    """RATS at full width through rats_refresh, against the plain twins
+    (with profile, where its time goes); returns the launches of the
+    kernel run."""
+    from geosradiation_gridcomp_tpu_torch.driver.diagnostics import (
+        RATS_GASES, rats_refresh, rats_update)
+    from geosradiation_gridcomp_tpu_torch.driver.radiation import \
+        irrad_refresh
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
+        NGS_LW, taumol_lw)
+
+    inp, cfg, ict, icb = step["inp"], step["cfg"], step["ict"], step["icb"]
+    lw = step["mods"]["lw"]
+
+    def refresh(plain=False):
+        return rats_refresh(inp, DOY, cfg, ict, icb, lw=lw, plain=plain)
+
+    print(f"rats: rats_refresh over {len(RATS_GASES)} gases at "
+          f"{inp.t.shape[0]} x {NLEV}:")
+    # K3's inputs of each solve, kept to hold K3 to its twin on them
+    k3, k3_calls = lwm.taumol_lw_fast, []
+
+    def k3_recorded(*args, **kwargs):
+        k3_calls.append((args, kwargs))
+        return k3(*args, **kwargs)
+    lwm.taumol_lw_fast = k3_recorded
+    try:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        rats = refresh()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        lwm.taumol_lw_fast = k3
+    print(f"  kernel launches in the rats path: {launches}")
+    want = {k: len(RATS_GASES)
+            for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc")}
+    if launches != want:
+        raise AssertionError(f"rats path launched {launches}, not {want}")
+    for gas, (args, kwargs) in zip(RATS_GASES, k3_calls):
+        err = max(band_relmax(a, b, NGS_LW) for a, b in zip(
+            k3(*args, **kwargs), taumol_lw(*args, **kwargs)))
+        gate(f"{gas} K3 vs its twin, worst band", err, 5e-4)
+    del k3_calls
+    plain = refresh(plain=True)
+    for g, gas in enumerate(RATS_GASES):
+        err, field = max((relmax(getattr(rats, f)[g], getattr(plain, f)[g]),
+                          f) for f in rats._fields)
+        gate(f"{gas} RatsState relmax, worst ({field})", err, 5e-5)
+    irr = irrad_refresh(inp, DOY, cfg, ict, icb, lw=lw)
+    _, forcing = rats_update(rats, irr, inp.tsinst + 0.5)
+    toa = {gas: forcing[RATS_GASES.index(gas), :, 0] for gas in ("CO2",
+                                                                "CH4")}
+    for gas, f in toa.items():
+        print(f"  {gas} TOA forcing min/mean/max {float(f.min()):.4f} / "
+              f"{float(f.mean()):.4f} / {float(f.max()):.4f} W/m^2")
+    co2, ch4 = float(toa["CO2"].mean()), float(toa["CH4"].mean())
+    if not co2 > ch4 > 0.0:
+        raise AssertionError(f"TOA forcing means CO2 {co2}, CH4 {ch4}")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refresh()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"  rats_refresh wall {statistics.median(walls) * 1e3:.3f} ms "
+          f"(median of 5), {time_ms(torch, refresh, 5):.3f} ms by CUDA "
+          f"events (mean of 5)")
+    if profile:
+        device_profile(torch, "RATS refresh", refresh, 3, top=8)
+    return launches
+
+
+def chou_phase(torch, dev, profile=False):
+    """The Chou-Suarez schemes at full width on the card, against the
+    same functions on the CPU on the first 256 columns (with profile,
+    where their time goes)."""
+    from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
+                                                         Scheme)
+    from geosradiation_gridcomp_tpu_torch.driver.radiation import \
+        AtmosInputs
+    from geosradiation_gridcomp_tpu_torch.driver.step import (
+        radiation_refresh, radiation_update)
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+
+    cfg = RadiationConfig(sw_scheme=Scheme.CHOU, lw_scheme=Scheme.CHOU)
+    inp = example_inputs(NCOL_SLICE, NLEV, seed=SEED, device=dev)
+    ple0 = inp.ple[0].cpu().numpy()
+    ict, icb = cfg.superlayer_indices(0.5 * (ple0[1:] + ple0[:-1]))
+
+    def run(x):
+        sol, irr = radiation_refresh(x, DOY, UTC, config=cfg, ict=ict,
+                                     icb=icb)
+        return sol, irr, radiation_update(sol, irr, x.tsinst + 0.5, x.lons,
+                                          x.lats, x.ple, DOY, UTC + 0.25,
+                                          config=cfg)
+
+    print(f"chou: Chou-Suarez radiation_refresh + radiation_update at "
+          f"{NCOL_SLICE} x {NLEV}, ict={ict} icb={icb}:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    sol, irr, upd = run(inp)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if LAUNCHES:
+        raise AssertionError(f"the Chou path launched {dict(LAUNCHES)}")
+    n = 256
+    sol_c, irr_c, upd_c = run(AtmosInputs(*(x[:n].cpu() for x in inp)))
+    pairs = [*((f"SolarState.{f}", getattr(sol, f), getattr(sol_c, f))
+               for f in sol._fields),
+             *((f"IrradState.{f}", getattr(irr, f), getattr(irr_c, f))
+               for f in irr._fields),
+             *((f"{g} export {k}", upd[g][k], upd_c[g][k])
+               for g in ("sw", "lw") for k in upd_c[g]),
+             *((k, upd[k], upd_c[k]) for k in ("alw", "blw"))]
+    err, name = max((relmax(a[:n].cpu(), b), name) for name, a, b in pairs)
+    gate(f"card vs CPU relmax, worst of {len(pairs)} ({name})", err, 5e-5)
+    # the heating rates divide flux differences by dp, a few Pa near the
+    # model top: gated in the reference's form, as in the step phase
+    heating_rate_gates(upd["dtdt"][:n].cpu(), upd_c["dtdt"],
+                       inp.ple[:n].cpu(), upd_c["sw"]["fsw"],
+                       upd_c["lw"]["flw"], 5e-5, 5e-5)
+    for name, x in [*zip(sol._fields, sol), *zip(irr._fields, irr),
+                    *upd["sw"].items(), *upd["lw"].items()]:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name} has non-finite values")
+    net_max, sfc_min = float(sol.flxn.max()), float(sol.flxn[:, -1].min())
+    olr = upd["lw"]["olr"]
+    print(f"  SW net / TOA insolation: max {net_max:.4f}, surface min "
+          f"{sfc_min:.4f}; OLR min/mean/max {float(olr.min()):.1f} / "
+          f"{float(olr.mean()):.1f} / {float(olr.max()):.1f} W/m^2")
+    if not (net_max <= 1.0 + 1e-6 and sfc_min >= 0.0):
+        raise AssertionError("Chou SW net flux outside [0, 1] of the TOA "
+                             "insolation")
+    if not (float(olr.min()) > 120.0 and float(olr.max()) < 340.0):
+        raise AssertionError("Chou OLR outside 120-340 W/m^2")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(inp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"  refresh + update wall {statistics.median(walls) * 1e3:.1f} ms "
+          f"(median of 3, {NCOL_SLICE / statistics.median(walls):.0f} "
+          f"columns/s); peak device memory {peak / 2**20:.1f} MiB")
+    if profile:
+        device_profile(torch, "Chou refresh + update", lambda: run(inp), 1,
+                       top=10)
+
+
+def driver_phase(torch, step, profile=False):
+    """The clock-driven model loop at full width with the kernels, then
+    the same run restarted from a checkpoint after heartbeat 2 (with
+    profile, where a heartbeat's update spends its time); returns the
+    launches of the uninterrupted run."""
+    import os
+
+    from geosradiation_gridcomp_tpu_torch.driver.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from geosradiation_gridcomp_tpu_torch.driver.clock import RadiationClock
+    from geosradiation_gridcomp_tpu_torch.driver.diagnostics import (
+        rats_refresh, rats_update)
+    from geosradiation_gridcomp_tpu_torch.driver.step import (
+        radiation_refresh, radiation_update, sw_partition_bounds)
+    from geosradiation_gridcomp_tpu_torch.driver.validate import (
+        check_finite, validate_inputs)
+    from geosradiation_gridcomp_tpu_torch.kernels.build import BUILD_DIR, \
+        LAUNCHES
+
+    inp, cfg, ict, icb = step["inp"], step["cfg"], step["ict"], step["icb"]
+    mods = step["mods"]
+
+    def refresh(clk):
+        validate_inputs(inp)
+        nlit, ncld = sw_partition_bounds(inp.lons, inp.lats, inp.fcld,
+                                         clk.doy, clk.utc_hours, cfg)
+        sol, irr = radiation_refresh(inp, clk.doy, clk.utc_hours, config=cfg,
+                                     ict=ict, icb=icb, sw_nlit=nlit,
+                                     sw_ncld=ncld, **mods)
+        rats = rats_refresh(inp, clk.doy, cfg, ict, icb, lw=mods["lw"])
+        for name, st in (("SolarState", sol), ("IrradState", irr),
+                         ("RatsState", rats)):
+            check_finite(st, name)
+        return sol, irr, rats
+
+    def update(states, doy, utc, ts):
+        sol, irr, rats = states
+        out = radiation_update(sol, irr, ts, inp.lons, inp.lats, inp.ple,
+                               doy, utc, config=cfg)
+        out["rats"] = dict(zip(("flx_rat", "forcing"),
+                               rats_update(rats, irr, ts)))
+        return out
+
+    def heartbeats(clk, states, n, walls):
+        outs = []
+        for _ in range(n):
+            for act in clk.tick():
+                if act == "refresh":
+                    states = refresh(clk)
+                    continue
+                ts = inp.tsinst + 0.25 * clk.time_s / clk.run_dt
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = update(states, clk.doy, clk.utc_hours, ts)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                outs.append(check_finite(out, "exports"))
+        return states, outs
+
+    def start():
+        clk = RadiationClock(run_dt=1800.0, solar_dt=3600.0, start_doy=DOY,
+                             start_utc_hours=UTC)
+        return clk, refresh(clk)
+
+    print(f"driver: RadiationClock(run_dt=1800, solar_dt=3600), 4 "
+          f"heartbeats at {inp.t.shape[0]} x {NLEV}, then restarted from a "
+          f"checkpoint after heartbeat 2:")
+    walls = []
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    clk, states = start()
+    _, ref = heartbeats(clk, states, 4, walls)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"  kernel launches in the driver path: {launches}")
+    require_launched(launches, "step")
+
+    clk, states = start()
+    states, outs = heartbeats(clk, states, 2, [])
+    path = os.path.join(os.path.dirname(BUILD_DIR), "driver_checkpoint.npz")
+    save_checkpoint(path, solar=states[0], irrad=states[1], rats=states[2],
+                    clock=clk)
+    ck = load_checkpoint(path, device="cuda")
+    if ck["irrad"].flx.device != inp.t.device:
+        raise AssertionError("load_checkpoint did not put the state on the "
+                             "card")
+    outs += heartbeats(ck["clock"], (ck["solar"], ck["irrad"], ck["rats"]),
+                       2, [])[1]
+    flat = [(f"heartbeat {i + 1} {g}/{k}", a[g][k], b[g][k])
+            for i, (a, b) in enumerate(zip(outs, ref))
+            for g in ("sw", "lw", "rats") for k in b[g]]
+    flat += [(f"heartbeat {i + 1} {k}", a[k], b[k])
+             for i, (a, b) in enumerate(zip(outs, ref))
+             for k in ("dtdt", "alw", "blw")]
+    bad = [name for name, a, b in flat if not torch.equal(a, b)]
+    gate(f"restarted vs uninterrupted exports not bitwise equal (of "
+         f"{len(flat)})", len(bad), 0)
+    print(f"  radiation_update + rats_update wall per heartbeat: "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms")
+    if profile:
+        device_profile(torch, "heartbeat update",
+                       lambda: update(states, DOY, UTC, inp.tsinst), 5,
+                       top=10)
+    return launches
+
+
+def device_profile(torch, label, fn, nprof, top=25):
+    """torch.profiler over nprof calls of fn: the wall per call under the
+    profiler, the device kernel time and launches per call, the top
+    kernels by device time, and the device's idle share over the
+    profiled span."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(nprof):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / nprof
+
+    def on_device(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if on_device(e) and e.device_time_total > 0),
+                  reverse=True)
+    total = sum(r[0] for r in rows) / 1e3 / nprof
+    print(f"  under the profiler: {wall * 1e3:.3f} ms per {label}, device "
+          f"kernel time {total:.3f} ms in "
+          f"{sum(r[1] for r in rows) / nprof:.0f} launches")
+    for dt, count, key in rows[:top]:
+        print(f"  {dt / 1e3 / nprof:8.3f} ms {count / nprof:7.1f}x  "
+              f"{key[:100]}")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if on_device(e) and e.time_range.elapsed_us() > 0)
+    busy, cur = 0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += 0 if cur is None else cur[1] - cur[0]
+    span = spans[-1][1] - spans[0][0] if spans else 0
+    print(f"  device busy {busy / 1e3:.3f} of {span / 1e3:.3f} ms profiled "
+          f"({100.0 * (1.0 - busy / max(span, 1)):.1f} % idle under the "
+          f"profiler)")
+
+
+def profile_phase(torch, step, nwall=30, nprof=5):
+    """--profile: where the time of the full-width refresh goes."""
     from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
     from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
         mean_cos_zenith
@@ -707,43 +1042,7 @@ def profile_phase(torch, step, nwall=30, nprof=5):
           f" ms, quartiles {q[0] * 1e3:.3f} / {q[2] * 1e3:.3f}, min "
           f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(nprof):
-            refresh(False)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / nprof
-
-    def on_device(e):
-        return str(getattr(e, "device_type", "")).endswith("CUDA")
-
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if on_device(e) and e.device_time_total > 0),
-                  reverse=True)
-    total = sum(r[0] for r in rows) / 1e3 / nprof
-    print(f"  under the profiler: {wall * 1e3:.3f} ms per refresh, device "
-          f"kernel time {total:.3f} ms in "
-          f"{sum(r[1] for r in rows) / nprof:.0f} launches")
-    for dt, count, key in rows[:25]:
-        print(f"  {dt / 1e3 / nprof:8.3f} ms {count / nprof:7.1f}x  "
-              f"{key[:100]}")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if on_device(e) and e.time_range.elapsed_us() > 0)
-    busy, cur = 0, None
-    for start, end in spans:
-        if cur is None or start > cur[1]:
-            busy += 0 if cur is None else cur[1] - cur[0]
-            cur = [start, end]
-        else:
-            cur[1] = max(cur[1], end)
-    busy += 0 if cur is None else cur[1] - cur[0]
-    span = spans[-1][1] - spans[0][0] if spans else 0
-    print(f"  device busy {busy / 1e3:.3f} of {span / 1e3:.3f} ms profiled "
-          f"({100.0 * (1.0 - busy / max(span, 1)):.1f} % idle under the "
-          f"profiler)")
+    device_profile(torch, "refresh", lambda: refresh(False), nprof)
 
     # K1 and K2 derive the subkeys and K2 the SW band optics on the card:
     # the refresh calls neither subcolumn_keys nor band_optics_coeffs_sw
@@ -882,6 +1181,9 @@ def main():
     for path in ("verify", "profiling"):
         print(f"  kernel launches in the {path} path: {paths[path]}")
         require_launched(paths[path], path)
+    paths["rats"] = rats_phase(torch, step, args.profile)
+    chou_phase(torch, dev, args.profile)
+    paths["driver"] = driver_phase(torch, step, args.profile)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "geosradiation_gridcomp_tpu"))
     if loaded:
@@ -894,7 +1196,10 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces,
             path=path, launches=paths[path][name],
             launches_per_refresh=paths[path][name] if path == "step"
-            else 0, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            else 0,
+            launches_by_path={p: n[name] for p, n in paths.items()
+                              if n.get(name)},
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,20 @@
-"""LW band brightness temperatures (the part of the reference's
-driver/diagnostics.py that irrad_update needs for its "tbrb" output).
+"""LW diagnostic products: band brightness temperatures and RATS forcing.
 
-Narrow-band Planck inversion of band OLR, GEOS_IrradGridComp.F90:4132-4212.
+Port of geosradiation_gridcomp_tpu/driver/diagnostics.py:
+  * the narrow-band Planck inversion of band OLR to a brightness
+    temperature, GEOS_IrradGridComp.F90:4132-4212;
+  * the RATS loop (:3390-3468): re-run the LW scheme once per radiatively
+    active trace species with that gas zeroed, storing flux internals so
+    instantaneous radiative forcings (F_all - F_gas_zeroed) can be
+    exported and advanced between refreshes like the main fluxes.
 """
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .state import RatsState
 
 # RRTMG LW band bounds [cm^-1] (rrlw_wvn wavenum1/2)
 LW_WAVENUM1 = np.array([10., 350., 500., 630., 700., 820., 980., 1080.,
@@ -24,6 +33,13 @@ _BIGC = 2.0 * _H * _C * _C
 
 # GEOS missing-data marker (MAPL_UNDEF)
 UNDEF = 1.0e15
+
+# RATS gas set (GEOS_IrradGridComp.F90:3408-3437 select cases), and the
+# AtmosInputs field each one zeroes
+RATS_GASES = ("H2O", "O3", "CO2", "CH4", "N2O", "CFC11", "CFC12", "HCFC22")
+_RATS_FIELDS = {"H2O": "qv", "O3": "o3", "CO2": "co2", "CH4": "ch4",
+                "N2O": "n2o", "CFC11": "cfc11", "CFC12": "cfc12",
+                "HCFC22": "hcfc22"}
 
 
 def invert_planck_for_t(b_wn, wn):
@@ -47,3 +63,51 @@ def band_brightness_temperature(olrb, wavenum1=None, wavenum2=None):
     bmean = torch.clamp(olrb, min=1e-30) / (np.pi * dwn)
     tbr = invert_planck_for_t(bmean, wn_mid)
     return torch.where(olrb > 0.0, tbr, torch.full_like(tbr, UNDEF))
+
+
+def rats_refresh(inp, doy, config, ict, icb, taua=None,
+                 gases: Sequence[str] = RATS_GASES, lw=None,
+                 plain=False) -> RatsState:
+    """LW internals with each trace gas zeroed in turn (the RATS loop,
+    GEOS_IrradGridComp.F90:3405-3468); each entry costs one full LW solve.
+
+    lw: the RRTMGLW holding the tables, built once here on the inputs'
+    device when None and the scheme is RRTMG, and shared by every solve.
+    plain=True runs the kernels' plain PyTorch twins (see irrad_refresh).
+
+    Returns RatsState with leading gas axis ordered as `gases`.
+    """
+    from ..config import Scheme
+    from ..models.rrtmg.lw import RRTMGLW
+    from .radiation import irrad_refresh
+
+    for gas in gases:
+        if gas not in RATS_GASES:
+            raise ValueError(f"unknown RATS gas {gas!r}")
+    if lw is None and config.lw_scheme == Scheme.RRTMG:
+        lw = RRTMGLW.from_reference_tables(inp.t.device)
+    states = []
+    for gas in gases:
+        field = _RATS_FIELDS[gas]
+        zeroed = inp._replace(
+            **{field: torch.zeros_like(getattr(inp, field))})
+        states.append(irrad_refresh(zeroed, doy, config, ict, icb, taua=taua,
+                                    lw=lw, plain=plain))
+    return RatsState(*(torch.stack([getattr(st, f) for st in states])
+                       for f in RatsState._fields))
+
+
+def rats_update(rats: RatsState, irr_state, tsinst
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-heartbeat Ts-linearized advance of the RATS internals plus the
+    instantaneous radiative forcing of each gas:
+    forcing[g] = F_net(all gases) - F_net(gas g zeroed), both advanced to
+    the current Ts.
+
+    Returns (flx_rat [ngas, ncol, nlev+1], forcing [ngas, ncol, nlev+1]).
+    """
+    delt = (tsinst - irr_state.ts)[None, :, None]
+    flx_rat = rats.flx + rats.dfdts * delt
+    flx_all = (irr_state.flx + irr_state.dfdts
+               * (tsinst - irr_state.ts)[:, None])[None]
+    return flx_rat, flx_all - flx_rat

@@ -1,11 +1,12 @@
 """Radiation driver: intermittent refresh + cheap per-heartbeat updates.
 
-Port of geosradiation_gridcomp_tpu/driver/radiation.py, RRTMG branches:
-SOLAR `solar_refresh` (with the optional aerosol and the no-aerosol
-second pass) and `solar_update`; IRRAD `irrad_refresh` (likewise) and
-`irrad_update`; `heating_rates` and `surface_lw_linearization`. The
-composite heating-rate synthesis matches GEOS_RadiationGridComp.F90:
-798-819.
+Port of geosradiation_gridcomp_tpu/driver/radiation.py, RRTMG and
+Chou-Suarez branches: SOLAR `solar_refresh` (with the optional aerosol and
+the no-aerosol second pass) and `solar_update`; IRRAD `irrad_refresh`
+(likewise) and `irrad_update`; `heating_rates` and
+`surface_lw_linearization`. The RRTMGP branches raise NotImplementedError
+(ROADMAP Queue 1 C). The composite heating-rate synthesis matches
+GEOS_RadiationGridComp.F90:798-819.
 
 AtmosInputs carries the SOLAR/IRRAD import fields as column batches of
 torch tensors, TOA-first.
@@ -18,6 +19,8 @@ import torch
 from ..config import RadiationConfig, Scheme
 from ..constants import CP, GRAV
 
+from ..models.chou_lw import chou_lw
+from ..models.chou_sw import chou_sw
 from ..models.rrtmg.lw import (RRTMGLW, level_temperatures, mid_heights,
                                rrtmg_lw)
 from ..models.rrtmg.sw import RRTMGSW, rrtmg_sw
@@ -65,6 +68,13 @@ def _undef_like(x):
     return torch.full_like(x, UNDEF)
 
 
+def _undef_cldfrc(ref):
+    """UNDEF-filled [ncol, 4] cloud-fraction diagnostic (the scheme gives
+    no McICA subcolumn counts, or the output is pruned by config)."""
+    return torch.full((ref.shape[0], 4), UNDEF, dtype=ref.dtype,
+                      device=ref.device)
+
+
 def _cwc_reff(inp):
     cwc = torch.stack([inp.qi, inp.ql, inp.qr, inp.qs], dim=-1)
     reff = torch.stack([inp.ri, inp.rl, inp.rr, inp.rs], dim=-1)
@@ -104,10 +114,11 @@ def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
     With aerosols present and "no_aerosol" in config.outputs, a second
     aerosol-free pass fills the no-aerosol internals; without aerosols
     they alias the all-sky ones, as in the reference. sw: the RRTMGSW
-    holding the tables (built on the inputs' device when None).
-    plain=True runs the kernels' plain PyTorch twins (see rrtmg_sw).
+    holding the tables (built on the inputs' device when None and the
+    scheme is RRTMG). plain=True runs the kernels' plain PyTorch twins
+    (see rrtmg_sw); the Chou-Suarez scheme has no kernel.
     """
-    if sw is None:
+    if sw is None and config.sw_scheme == Scheme.RRTMG:
         sw = RRTMGSW.from_reference_tables(inp.t.device)
     st = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa,
                              asya, nlit, ncld, sw, plain)
@@ -125,11 +136,27 @@ def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
 def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
                         nlit, ncld, sw, plain) -> SolarState:
     if config.sw_scheme == Scheme.CHOU:
-        raise NotImplementedError(
-            "Chou-Suarez SW is not ported yet (ROADMAP Queue 1: Chou-Suarez)")
+        cwc, reff = _cwc_reff(inp)
+        out = chou_sw(cosz, inp.ple, inp.t, inp.qv, inp.o3, inp.co2,
+                      cwc, inp.fcld, reff,
+                      taua=taua, ssaa=ssaa, asya=asya,
+                      rsuvbm=inp.albvr, rsuvdf=inp.albvf,
+                      rsirbm=inp.albnr, rsirdf=inp.albnf,
+                      ict=ict, icb=icb)
+        undef = _undef_like(out["flx"])
+        return SolarState(
+            flxn=out["flx"], flcn=out["flc"],
+            flxun=out["flxu"], flcun=out["flcu"],
+            fdir_uv_n=out["fdiruv"], fdif_uv_n=out["fdifuv"],
+            fdir_par_n=out["fdirpar"], fdif_par_n=out["fdifpar"],
+            fdir_nir_n=out["fdirir"], fdif_nir_n=out["fdifir"],
+            flx_sfc_band_n=out["flx_sfc_band"],
+            drband_n=out["drband"], dfband_n=out["dfband"],
+            cldfrc=_undef_cldfrc(cosz),
+            flxnan=undef, flcnan=undef, flxunan=undef)
     if config.sw_scheme == Scheme.RRTMGP:
         raise NotImplementedError(
-            "RRTMGP SW is not ported yet (ROADMAP Queue 1: RRTMGP)")
+            "RRTMGP SW is not ported yet (ROADMAP Queue 1 C: RRTMGP)")
     play, h2ovmr, o3vmr = _common_derived(inp)
     zm = mid_heights(play, inp.t, inp.ple[..., -1])
     ciwp, clwp = _incloud_paths(inp)
@@ -158,8 +185,7 @@ def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
     if config.wants("clear_counts"):
         cldfrc = 1.0 - out["clear_counts"].to(out["bbfd"].dtype) / 112.0
     else:
-        cldfrc = torch.full((cosz.shape[0], 4), UNDEF, dtype=cosz.dtype,
-                            device=cosz.device)
+        cldfrc = _undef_cldfrc(cosz)
     undef = _undef_like(out["bbfd"])
     return SolarState(
         flxn=nv(out["bbfd"] - out["bbfu"]),
@@ -215,17 +241,18 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
                   lw: RRTMGLW = None, plain=False) -> IrradState:
     """Full LW RT; stores fluxes + dF/dTs Jacobian at refresh time.
 
-    lw: the RRTMGLW holding the tables (built from the reference tables
-    on the inputs' device when None). ssaa/asya are accepted for the
-    reference's signature; RRTMG-LW is absorption-only. plain=True runs
-    the kernels' plain PyTorch twins on any device (see rrtmg_lw).
+    taua/ssaa/asya: LW aerosol optics; Chou-Suarez takes all three
+    [ncol, nlay, 10], RRTMG-LW (absorption-only) taua alone
+    [ncol, nlay, 16]. lw: the RRTMGLW holding the tables (built from the
+    reference tables on the inputs' device when None). plain=True runs the
+    kernels' plain PyTorch twins on any device (see rrtmg_lw); the
+    Chou-Suarez scheme has no kernel.
     """
     if config.lw_scheme == Scheme.CHOU:
-        raise NotImplementedError(
-            "Chou-Suarez LW is not ported yet (ROADMAP Queue 1: Chou-Suarez)")
+        return _chou_irrad_refresh(inp, config, ict, icb, taua, ssaa, asya)
     if config.lw_scheme == Scheme.RRTMGP:
         raise NotImplementedError(
-            "RRTMGP LW is not ported yet (ROADMAP Queue 1: RRTMGP)")
+            "RRTMGP LW is not ported yet (ROADMAP Queue 1 C: RRTMGP)")
     if lw is None:
         lw = RRTMGLW.from_reference_tables(inp.t.device)
     play, h2ovmr, o3vmr = _common_derived(inp)
@@ -283,6 +310,33 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
         dolrb_dts=(out.get("dolrb_dts", zb)
                    if config.ts_derivs and wants_olrb else zb),
         flxa=flxa, fla=fla, dfdtsna=dfdtsna, dfdtscna=dfdtscna)
+
+
+def _chou_irrad_refresh(inp, config, ict, icb, taua, ssaa, asya):
+    cwc, reff = _cwc_reff(inp)
+    ncol = inp.t.shape[0]
+    emis10 = inp.emis[:, None].expand(ncol, 10)
+    out = chou_lw(inp.ple, inp.t, inp.qv, inp.o3, inp.t2m, inp.tsinst,
+                  emis10, inp.co2, inp.n2o, inp.ch4,
+                  inp.cfc11, inp.cfc12, inp.hcfc22,
+                  cwc, inp.fcld, reff, taua=taua, ssaa=ssaa, asya=asya,
+                  ict=ict, icb=icb, trace=config.trace_gases,
+                  with_aerosol=taua is not None)
+    # Chou sign: up negative, down positive; net downward = flxd + flxu
+    zb = torch.zeros((ncol, 16), dtype=out["flxd"].dtype,
+                     device=out["flxd"].device)
+    # the Chou solve emits the no-aerosol variants from the same sweep
+    return IrradState(
+        flx=out["flxd"] + out["flxu"], flc=out["flcd"] + out["flcu"],
+        flxu=-out["flxu"], flxd=out["flxd"],
+        dfdts=out["dfdts"], sfcem=out["sfcem"], ts=inp.tsinst,
+        # band OLR is an RRTMG-only diagnostic in the reference
+        # (GEOS_IrradGridComp.F90:1257)
+        olrb=zb, dolrb_dts=zb,
+        flxa=out["flxad"] + out["flxau"], fla=out["flad"] + out["flau"],
+        # GEOS_IrradGridComp.F90:2105-2109: "Chou-Suarez does not provide
+        # these derivatives": DFDTSNA=DFDTS, DFDTSCNA=DFDTSC(=0)
+        dfdtsna=out["dfdts"], dfdtscna=torch.zeros_like(out["dfdts"]))
 
 
 def irrad_update(state: IrradState, tsinst, config: RadiationConfig = None):

@@ -1,5 +1,5 @@
-"""Radiation internal states at refresh time (the reference's SolarState
-and IrradState).
+"""Radiation internal states at refresh time (the reference's SolarState,
+IrradState and RatsState).
 
 Same fields, same order as geosradiation_gridcomp_tpu/driver/state.py;
 the fields are torch tensors.
@@ -51,3 +51,17 @@ class IrradState(NamedTuple):
     fla: torch.Tensor         # clear-sky net, no aerosol
     dfdtsna: torch.Tensor     # d(net no-aerosol)/dTs
     dfdtscna: torch.Tensor    # clear-sky no-aerosol derivative
+
+
+class RatsState(NamedTuple):
+    """Radiatively-active-trace-species diagnostics: LW internals from
+    re-running the scheme with one gas zeroed per entry
+    (GEOS_IrradGridComp.F90:3390-3468 FLX_RAT/DFDTS_RAT/SFCEM_RAT).
+
+    Leading axis = gas, ordered as the `gases` tuple passed to
+    diagnostics.rats_refresh."""
+    flx: torch.Tensor         # [ngas, ncol, nlev+1] net downward
+    flxu: torch.Tensor        # [ngas, ncol, nlev+1]
+    flxd: torch.Tensor        # [ngas, ncol, nlev+1]
+    dfdts: torch.Tensor       # [ngas, ncol, nlev+1]
+    sfcem: torch.Tensor       # [ngas, ncol]

@@ -21,10 +21,11 @@ def radiation_refresh(inp: AtmosInputs, doy, utc_hours, *, config, ict, icb,
     """Full SW+LW refresh. Returns (solar_state, irrad_state).
 
     sw_aero: optional (taua, ssaa, asya) per-SW-band aerosol optics
-    [ncol, nlay, 14]. lw_aero: optional LW aerosol optical depth
-    [ncol, nlay, 16] (RRTMG-LW is absorption-only; a (taua, ssaa, asya)
-    tuple is accepted and its first entry used). sw_nlit / sw_ncld:
-    optional SW daylight-packing bounds (sw_partition_bounds below).
+    [ncol, nlay, nband]. lw_aero: optional LW aerosol optics, a
+    (taua, ssaa, asya) tuple for the Chou scheme (10 bands), or taua
+    alone; RRTMG-LW (16 bands, absorption-only) uses taua alone.
+    sw_nlit / sw_ncld: optional SW daylight-packing bounds
+    (sw_partition_bounds below).
     sw / lw: the RRTMGSW / RRTMGLW modules holding the tables (built on the
     inputs' device when None). plain=True runs the kernels' plain PyTorch
     twins.
@@ -34,13 +35,17 @@ def radiation_refresh(inp: AtmosInputs, doy, utc_hours, *, config, ict, icb,
     zth = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
                       torch.zeros_like(slr))
     staua, sssaa, sasya = sw_aero if sw_aero is not None else (None,) * 3
-    if isinstance(lw_aero, (tuple, list)):
-        lw_aero = lw_aero[0]
+    if lw_aero is None:
+        ltaua, lssaa, lasya = None, None, None
+    elif isinstance(lw_aero, (tuple, list)):
+        ltaua, lssaa, lasya = lw_aero
+    else:
+        ltaua, lssaa, lasya = lw_aero, None, None
     sol = solar_refresh(inp, zth, doy, config, ict, icb, taua=staua,
                         ssaa=sssaa, asya=sasya, nlit=sw_nlit, ncld=sw_ncld,
                         sw=sw, plain=plain)
-    irr = irrad_refresh(inp, doy, config, ict, icb, taua=lw_aero, lw=lw,
-                        plain=plain)
+    irr = irrad_refresh(inp, doy, config, ict, icb, taua=ltaua, ssaa=lssaa,
+                        asya=lasya, lw=lw, plain=plain)
     return sol, irr
 
 

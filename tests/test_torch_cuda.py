@@ -18,15 +18,25 @@ step <= 5e-4 (the SW end-to-end gate, tools/verify_tpu.py:279-281). K7,
 P1 and both P2 kernels exact; P3's full variant equal to K3 bit for bit,
 every variant <= 5e-4 per band (K3's gate). K1, K2, K4, K5 and K6's
 wrappers run under torch.cuda.set_sync_debug_mode("error"): none
-synchronises the stream.
+synchronises the stream. RATS with the kernels (K1, K3 and K4 launched
+once per gas) against the twins, every gas <= 5e-5, and K3 <= 5e-4 per
+band on each gas's inputs; the Chou-Suarez
+refresh + update on the card against the same functions on the CPU
+<= 5e-5 (no kernel launched); a checkpoint loaded onto the card, and a
+run restarted from it bitwise equal to the uninterrupted run.
 """
 
 import pytest
 import torch
 
-from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
+from geosradiation_gridcomp_tpu_torch.config import RadiationConfig, Scheme
 from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
 from geosradiation_gridcomp_tpu_torch.driver import step
+from geosradiation_gridcomp_tpu_torch.driver.checkpoint import (
+    load_checkpoint, save_checkpoint)
+from geosradiation_gridcomp_tpu_torch.driver.clock import RadiationClock
+from geosradiation_gridcomp_tpu_torch.driver.diagnostics import (
+    RATS_GASES, rats_refresh, rats_update)
 from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
@@ -484,3 +494,127 @@ def test_p3_matches_plain(case, variant):
         for i in range(16):
             sl = slice(NGS_LW[i], NGS_LW[i + 1])
             assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 1
+
+
+@pytest.fixture(scope="module")
+def rats(dev):
+    """RATS at 64 x 72 with the kernels (K3's inputs of each solve kept)
+    and with the twins."""
+    inp = example_inputs(64, NLEV, device=dev)
+    lw = lwm.RRTMGLW.from_reference_tables(dev)
+    cfg = RadiationConfig()
+    k3_calls = []
+
+    def k3_recorded(*args, **kwargs):
+        k3_calls.append((args, kwargs))
+        return taumol_lw_fast(*args, **kwargs)
+    lwm.taumol_lw_fast = k3_recorded
+    try:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        kern = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        lwm.taumol_lw_fast = taumol_lw_fast
+    plain = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw, plain=True)
+    return inp, lw, kern, plain, launches, k3_calls
+
+
+def test_rats_launches_each_lw_kernel_once_per_gas(rats):
+    launches = rats[4]
+    for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc"):
+        assert launches.get(k) == len(RATS_GASES), (k, launches)
+
+
+@pytest.mark.parametrize("gas", RATS_GASES)
+def test_k3_with_gas_zeroed(rats, gas):
+    """K3 against its twin on the inputs each RATS solve gave it."""
+    args, kwargs = rats[5][RATS_GASES.index(gas)]
+    for x, y in zip(taumol_lw_fast(*args, **kwargs),
+                    taumol_lw(*args, **kwargs)):
+        for i in range(16):
+            sl = slice(NGS_LW[i], NGS_LW[i + 1])
+            assert relmax(x[..., sl], y[..., sl]) <= 5e-4, i + 1
+
+
+@pytest.mark.parametrize("gas", RATS_GASES)
+def test_rats_matches_plain(rats, gas):
+    _, _, kern, plain, _, _ = rats
+    g = RATS_GASES.index(gas)
+    for f in kern._fields:
+        assert relmax(getattr(kern, f)[g], getattr(plain, f)[g]) <= 5e-5, f
+
+
+def test_rats_forcing_on_the_card(rats):
+    inp, lw, kern, _, _, _ = rats
+    irr = rad.irrad_refresh(inp, DOY, RadiationConfig(), 69, 71, lw=lw)
+    _, forcing = rats_update(kern, irr, inp.tsinst + 0.5)
+    toa = forcing[:, :, 0]
+    co2, ch4 = toa[RATS_GASES.index("CO2")], toa[RATS_GASES.index("CH4")]
+    assert float(co2.mean()) > float(ch4.mean()) > 0.0
+
+
+def test_chou_on_the_card_matches_the_cpu(dev):
+    cfg = RadiationConfig(sw_scheme=Scheme.CHOU, lw_scheme=Scheme.CHOU)
+    outs = []
+    for device in (dev, "cpu"):
+        inp = example_inputs(64, NLEV, device=device)
+        LAUNCHES.clear()
+        sol, irr = step.radiation_refresh(inp, DOY, 12.0, config=cfg,
+                                          ict=69, icb=71)
+        upd = step.radiation_update(sol, irr, inp.tsinst + 0.5, inp.lons,
+                                    inp.lats, inp.ple, DOY, 12.25,
+                                    config=cfg)
+        assert not LAUNCHES
+        outs.append((sol, irr, upd))
+    (sol, irr, upd), (sol_c, irr_c, upd_c) = outs
+    for a, b in ((sol, sol_c), (irr, irr_c)):
+        for f in a._fields:
+            assert relmax(getattr(a, f).cpu(), getattr(b, f)) <= 5e-5, f
+    for group in ("sw", "lw"):
+        for k in upd_c[group]:
+            assert relmax(upd[group][k].cpu(), upd_c[group][k]) <= 5e-5, k
+
+
+def test_checkpoint_onto_the_card_restarts_bitwise(dev, tmp_path):
+    inp = example_inputs(64, NLEV, device=dev)
+    cfg = RadiationConfig()
+    mods = dict(sw=swm.RRTMGSW.from_reference_tables(dev),
+                lw=lwm.RRTMGLW.from_reference_tables(dev))
+
+    def run(clk, n, sol, irr):
+        outs = []
+        for _ in range(n):
+            for act in clk.tick():
+                if act == "refresh":
+                    sol, irr = step.radiation_refresh(
+                        inp, clk.doy, clk.utc_hours, config=cfg, ict=69,
+                        icb=71, **mods)
+                else:
+                    outs.append(step.radiation_update(
+                        sol, irr, inp.tsinst, inp.lons, inp.lats, inp.ple,
+                        clk.doy, clk.utc_hours, config=cfg))
+        return sol, irr, outs
+
+    def start():
+        clk = RadiationClock(run_dt=1800.0, solar_dt=3600.0)
+        return (clk, *step.radiation_refresh(inp, clk.doy, clk.utc_hours,
+                                             config=cfg, ict=69, icb=71,
+                                             **mods))
+    clk, sol, irr = start()
+    ref = run(clk, 4, sol, irr)[2]
+    clk, sol, irr = start()
+    sol, irr, outs = run(clk, 2, sol, irr)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, solar=sol, irrad=irr, clock=clk)
+    ck = load_checkpoint(path)
+    assert ck["irrad"].flx.device == irr.flx.device
+    for f in irr._fields:
+        assert torch.equal(getattr(ck["irrad"], f), getattr(irr, f))
+    outs += run(ck["clock"], 2, ck["solar"], ck["irrad"])[2]
+    for a, b in zip(outs, ref):
+        for group in ("sw", "lw"):
+            for k in b[group]:
+                assert torch.equal(a[group][k], b[group][k]), (group, k)
+        assert torch.equal(a["dtdt"], b["dtdt"])

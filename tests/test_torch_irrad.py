@@ -147,7 +147,7 @@ def test_physical_fluxes(runs):
     assert all(torch.isfinite(x).all() for x in ts)
 
 
-@pytest.mark.parametrize("scheme", [TScheme.CHOU, TScheme.RRTMGP])
+@pytest.mark.parametrize("scheme", [TScheme.RRTMGP])
 def test_unported_schemes_raise(scheme):
     ti = example_inputs(2, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -233,7 +233,7 @@ def test_physical_fluxes(runs):
     assert all(torch.isfinite(x).all() for x in (*ts[0], *ts[1]))
 
 
-@pytest.mark.parametrize("scheme", [TScheme.CHOU, TScheme.RRTMGP])
+@pytest.mark.parametrize("scheme", [TScheme.RRTMGP])
 def test_unported_sw_schemes_raise(scheme):
     ti = example_inputs(2, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

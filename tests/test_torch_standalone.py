@@ -8,6 +8,7 @@ comparison is exact (the copies are the same code on the same npz data).
 
 import dataclasses
 import glob
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -20,10 +21,13 @@ import torch
 from geosradiation_gridcomp_tpu import config as ref_config
 from geosradiation_gridcomp_tpu import constants as ref_constants
 from geosradiation_gridcomp_tpu import tables as ref_tables
+from geosradiation_gridcomp_tpu.driver import clock as ref_clock
+from geosradiation_gridcomp_tpu.driver import solar_cycle as ref_solar_cycle
 from geosradiation_gridcomp_tpu.models.rrtmg import nrlssi2 as ref_nrlssi2
 from geosradiation_gridcomp_tpu.models.rrtmg import tables_lw as ref_tlw
 from geosradiation_gridcomp_tpu.models.rrtmg import tables_sw as ref_tsw
 from geosradiation_gridcomp_tpu_torch import config, constants, tables
+from geosradiation_gridcomp_tpu_torch.driver import clock, solar_cycle
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import (cldprmc_lw,
                                                            cldprmc_sw, lw,
                                                            nrlssi2, sw,
@@ -35,9 +39,14 @@ from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "geosradiation_gridcomp_tpu_torch"
-# the entry modules: the step and its driver, the verification suite and
-# every module under tools/profiling
-ENTRY_MODULES = ("driver.step", "driver.radiation", "tools.verify") + tuple(
+# the entry modules: the step and its driver, the driver infrastructure
+# and RATS, the Chou-Suarez schemes, the verification suite and every
+# module under tools/profiling
+ENTRY_MODULES = (
+    "driver.step", "driver.radiation", "driver.diagnostics", "driver.clock",
+    "driver.validate", "driver.checkpoint", "driver.solar_cycle",
+    "ops.twostream", "ops.chou_optics", "models.chou_sw", "models.chou_lw",
+    "tools.verify") + tuple(
     f"tools.profiling.{m.name}" for m in pkgutil.iter_modules(
         [os.path.join(ROOT, PKG, "tools", "profiling")]))
 
@@ -174,6 +183,39 @@ def test_nrlssi2_copy(kw):
     for f in (0.0, 0.003, 0.25, 0.999, 1.0):
         assert nrlssi2.interpolate_indices(f) == \
             ref_nrlssi2.interpolate_indices(f)
+
+
+def _body(mod):
+    """A module's source below its docstring."""
+    src = inspect.getsource(mod)
+    return src[src.index('"""', 3) + 3:]
+
+
+@pytest.mark.parametrize("port,ref", [(clock, ref_clock),
+                                      (solar_cycle, ref_solar_cycle)],
+                         ids=["clock", "solar_cycle"])
+def test_plain_python_copy_source(port, ref):
+    """clock.py and solar_cycle.py are the reference's modules below the
+    docstring, line for line."""
+    assert _body(port) == _body(ref)
+
+
+def test_clock_and_solar_cycle_copies_behave_alike():
+    kw = dict(run_dt=900.0, solar_dt=2700.0, called_last=True,
+              start_doy=31.5, start_utc_hours=22.0)
+    a, b = clock.RadiationClock(**kw), ref_clock.RadiationClock(**kw)
+    for _ in range(7):
+        assert (a.tick(), a.utc_hours, a.doy) == (b.tick(), b.utc_hours,
+                                                  b.doy)
+    assert a.state_dict() == b.state_dict()
+    days = np.array([738000, 738001, 738004])
+    arrays = dict(days=days, tsi=np.array([1360.0, 1361.5, 1359.0]),
+                  mg=np.array([0.15, 0.16, 0.155]),
+                  sb=np.array([800.0, 900.0, 850.0]))
+    x = solar_cycle.SolarCycleData(**arrays)
+    y = ref_solar_cycle.SolarCycleData(**arrays)
+    for doy in (1.0, 200.25, 201.5, 202.9, 204.0, 300.0):
+        assert x.at_doy(2021, doy) == y.at_doy(2021, doy)
 
 
 CONSTRUCTORS = {
