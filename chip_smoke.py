@@ -70,7 +70,30 @@ nvcc per source side by side, then:
    (heating_rate_gates at those flux gates); SW net / TOA insolation in
    [0, 1] and OLR in 120-340 W/m^2; the wall time (median of 3) and the
    peak device memory;
-8. driver phase: a RadiationClock (30 min heartbeat, hourly refresh) for
+8. rrtmgp phase: radiation_refresh + radiation_update with the RRTMGP SW
+   and LW schemes through the RRTMG-reduced facade at 8192 x 72: K3, K4
+   and K5 must launch exactly once each and nothing else (K5 on all
+   8192 columns: the facade does not pack daylight); K3 and K5 within
+   relmax 5e-4 of their twins in every band and K4 in every output, on
+   the inputs this path gives them; every IrradState field and LW export
+   within 5e-5 of plain=True on the card, every SolarState field and SW
+   export within 5e-4 with at most 0.5 % of columns beyond 5e-5, the
+   heating rates in the reference's form; SW net / TOA insolation in
+   [0, 1] and OLR in 150-350 W/m^2; the clear-sky difference from the
+   RRTMG step (flcn, flc), the wall time (median of 3) and CUDA-event
+   time of the refresh, the plain refresh's wall, the McICA draws'
+   time (_gen_max_ran_mask, SW and LW) and the peak device memory;
+9. rrtmgp_native phase: the same through the native engine, on a
+   synthetic 2-band coefficient set written to build/ (a numpy copy of
+   the reference's tests/test_rrtmgp_engine.py:make_kdist), at 8192 x 72:
+   no kernel may launch, olrb has the set's 2 bands, every state field
+   and export within 5e-5 of the CPU on the first 256 columns (the
+   grazing-sun columns, cos zenith under 1e-4, reported apart: there the
+   reference's two mu0 floors make the normalized SW state follow the
+   card's and the CPU's cosine itself), the
+   heating rates in the reference's form, physics, wall time and peak
+   memory;
+10. driver phase: a RadiationClock (30 min heartbeat, hourly refresh) for
    4 heartbeats at 8192 x 72 with the kernels: validate_inputs and
    radiation_refresh + rats_refresh on the alarm, radiation_update +
    rats_update every heartbeat, check_finite on every new state and
@@ -93,12 +116,14 @@ band_optics_coeffs_sw (K1 and K2 derive the subkeys, K2 the SW band
 optics, on the card), and the solar_refresh and irrad_refresh stages
 alone, beside subcolumn_keys, now off the kernel path (CUDA events);
 and the same device profile of the RATS refresh, the Chou refresh +
-update and a heartbeat's radiation_update + rats_update.
+update, the RRTMGP facade refresh, the native RRTMGP refresh + update
+and a heartbeat's radiation_update + rats_update.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
 profiling; launches_per_refresh for the step kernels; launches_by_path
-on every path that launched it, K1, K3 and K4 also on rats), error,
+on every path that launched it, K1, K3 and K4 also on rats, K3, K4 and
+K5 also on rrtmgp), error,
 times, bound and library time, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
@@ -710,6 +735,116 @@ def step_phase(torch, dev):
                           ncld=ncld, mods=mods, refresh=refresh), calls
 
 
+def synthetic_kdist():
+    """A synthetic but structurally faithful native k-distribution (2
+    bands, 16 g-points, 3 gases, one minor contributor) in the engine's
+    dict form: a numpy copy of the reference's
+    tests/test_rrtmgp_engine.py:make_kdist() (held equal to it by
+    tests/test_torch_rrtmgp_engine.py), since no real RRTMGP coefficient
+    file is in the repo."""
+    import numpy as np
+
+    nt, ne, npr, ngpt = 5, 9, 12, 16
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 1, nt)[:, None, None, None]
+    e = np.linspace(0, 1, ne)[None, :, None, None]
+    p = np.linspace(0, 1, npr + 1)[None, None, :, None]
+    g = np.linspace(0, 1, ngpt)[None, None, None, :]
+    kmajor = (1e-22 * np.exp(0.8 * t + 0.5 * e - 1.2 * p + g)
+              ).astype(np.float32)
+    vmr_ref = np.ones((2, 4, nt))
+    vmr_ref[:, 1] = 8e-3     # h2o
+    vmr_ref[:, 2] = 4e-4     # co2
+    vmr_ref[:, 3] = 5e-6     # o3
+    gpoint_flavor = np.zeros((2, ngpt), np.int64)
+    gpoint_flavor[:, :8] = 1
+    gpoint_flavor[:, 8:] = 2
+    minor = dict(
+        kminor=(1e-23 * (1.0 + rng.random((nt, ne, 8)))).astype(np.float32),
+        gpt_limits=np.array([[1, 8]], np.int64),
+        gas_idx=np.array([3], np.int64),
+        scales_with_density=np.array([False]),
+        scaling_gas=np.array([0], np.int64),
+        scale_by_complement=np.array([False]))
+    return dict(
+        gas_names=np.array(["h2o", "co2", "o3"]), h2o_idx=np.int64(1),
+        press_ref=np.geomspace(103000.0, 100.0, npr),
+        press_ref_trop=np.float64(9948.0),
+        temp_ref=np.linspace(160.0, 340.0, nt), vmr_ref=vmr_ref,
+        flavor=np.array([[1, 2], [3, 0]], np.int64),
+        gpoint_flavor=gpoint_flavor, kmajor=kmajor,
+        band_lims_gpt=np.array([[1, 8], [9, 16]], np.int64),
+        band_lims_wvn=np.array([[10.0, 500.0], [500.0, 2000.0]]),
+        minor_lower=minor, minor_upper=None,
+        totplnk=np.linspace(10.0, 60.0, 30)[:, None]
+        * np.array([[0.6, 0.4]]),
+        planck_frac=np.full((nt, ne, npr + 1, ngpt), 1.0 / 8.0, np.float32),
+        temp_ref_planck=np.linspace(160.0, 340.0, 30),
+        solar_src=np.full(ngpt, 85.0),
+        rayl=(1e-25 * np.ones((2, nt, ne, ngpt))).astype(np.float32))
+
+
+def save_kdist_npz(data, path):
+    """The engine dict as an npz of the ingest schema (minor blocks as
+    minor_{which}_{field} keys), as tools/rrtmgp_ingest.py writes it."""
+    import numpy as np
+
+    out = {}
+    for k, v in data.items():
+        if k in ("minor_lower", "minor_upper"):
+            for kk, vv in (v or {}).items():
+                out[f"{k}_{kk}"] = vv
+        else:
+            out[k] = v
+    np.savez(path, **out)
+
+
+def state_and_export_pairs(sol, irr, upd, ref):
+    """(name, value, reference value) of every SolarState and IrradState
+    field, flux export and ALW/BLW of a refresh + update against ref's."""
+    sol_r, irr_r, upd_r = ref
+    return [*((f"SolarState.{f}", getattr(sol, f), getattr(sol_r, f))
+              for f in sol._fields),
+            *((f"IrradState.{f}", getattr(irr, f), getattr(irr_r, f))
+              for f in irr._fields),
+            *((f"{g} export {k}", upd[g][k], upd_r[g][k])
+              for g in ("sw", "lw") for k in upd_r[g]),
+            *((k, upd[k], upd_r[k]) for k in ("alw", "blw"))]
+
+
+def check_physical(torch, sol, irr, upd, olr_range, sw_cols=slice(None)):
+    """Finite states and exports, SW net / TOA insolation in [0, 1] (on
+    the columns sw_cols), OLR inside olr_range (W/m^2); prints them."""
+    for name, x in [*zip(sol._fields, sol), *zip(irr._fields, irr),
+                    *upd["sw"].items(), *upd["lw"].items()]:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name} has non-finite values")
+    flxn = sol.flxn[sw_cols]
+    net_max, sfc_min = float(flxn.max()), float(flxn[:, -1].min())
+    olr = upd["lw"]["olr"]
+    print(f"  SW net / TOA insolation: max {net_max:.4f}, surface min "
+          f"{sfc_min:.4f}; OLR min/mean/max {float(olr.min()):.1f} / "
+          f"{float(olr.mean()):.1f} / {float(olr.max()):.1f} W/m^2")
+    if not (net_max <= 1.0 + 1e-6 and sfc_min >= 0.0):
+        raise AssertionError("SW net flux outside [0, 1] of the TOA "
+                             "insolation")
+    if not olr_range[0] < float(olr.min()) <= float(olr.max()) \
+            < olr_range[1]:
+        raise AssertionError(f"OLR outside {olr_range} W/m^2")
+
+
+def walls(torch, fn, n):
+    """Host-clock seconds of n calls of fn, each ended by a synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
 def rats_phase(torch, step, profile=False):
     """RATS at full width through rats_refresh, against the plain twins
     (with profile, where its time goes); returns the launches of the
@@ -771,14 +906,8 @@ def rats_phase(torch, step, profile=False):
     co2, ch4 = float(toa["CO2"].mean()), float(toa["CH4"].mean())
     if not co2 > ch4 > 0.0:
         raise AssertionError(f"TOA forcing means CO2 {co2}, CH4 {ch4}")
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refresh()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    print(f"  rats_refresh wall {statistics.median(walls) * 1e3:.3f} ms "
+    print(f"  rats_refresh wall "
+          f"{statistics.median(walls(torch, refresh, 5)) * 1e3:.3f} ms "
           f"(median of 5), {time_ms(torch, refresh, 5):.3f} ms by CUDA "
           f"events (mean of 5)")
     if profile:
@@ -823,13 +952,7 @@ def chou_phase(torch, dev, profile=False):
         raise AssertionError(f"the Chou path launched {dict(LAUNCHES)}")
     n = 256
     sol_c, irr_c, upd_c = run(AtmosInputs(*(x[:n].cpu() for x in inp)))
-    pairs = [*((f"SolarState.{f}", getattr(sol, f), getattr(sol_c, f))
-               for f in sol._fields),
-             *((f"IrradState.{f}", getattr(irr, f), getattr(irr_c, f))
-               for f in irr._fields),
-             *((f"{g} export {k}", upd[g][k], upd_c[g][k])
-               for g in ("sw", "lw") for k in upd_c[g]),
-             *((k, upd[k], upd_c[k]) for k in ("alw", "blw"))]
+    pairs = state_and_export_pairs(sol, irr, upd, (sol_c, irr_c, upd_c))
     err, name = max((relmax(a[:n].cpu(), b), name) for name, a, b in pairs)
     gate(f"card vs CPU relmax, worst of {len(pairs)} ({name})", err, 5e-5)
     # the heating rates divide flux differences by dp, a few Pa near the
@@ -837,33 +960,250 @@ def chou_phase(torch, dev, profile=False):
     heating_rate_gates(upd["dtdt"][:n].cpu(), upd_c["dtdt"],
                        inp.ple[:n].cpu(), upd_c["sw"]["fsw"],
                        upd_c["lw"]["flw"], 5e-5, 5e-5)
-    for name, x in [*zip(sol._fields, sol), *zip(irr._fields, irr),
-                    *upd["sw"].items(), *upd["lw"].items()]:
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"{name} has non-finite values")
-    net_max, sfc_min = float(sol.flxn.max()), float(sol.flxn[:, -1].min())
-    olr = upd["lw"]["olr"]
-    print(f"  SW net / TOA insolation: max {net_max:.4f}, surface min "
-          f"{sfc_min:.4f}; OLR min/mean/max {float(olr.min()):.1f} / "
-          f"{float(olr.mean()):.1f} / {float(olr.max()):.1f} W/m^2")
-    if not (net_max <= 1.0 + 1e-6 and sfc_min >= 0.0):
-        raise AssertionError("Chou SW net flux outside [0, 1] of the TOA "
-                             "insolation")
-    if not (float(olr.min()) > 120.0 and float(olr.max()) < 340.0):
-        raise AssertionError("Chou OLR outside 120-340 W/m^2")
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(inp)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    print(f"  refresh + update wall {statistics.median(walls) * 1e3:.1f} ms "
-          f"(median of 3, {NCOL_SLICE / statistics.median(walls):.0f} "
-          f"columns/s); peak device memory {peak / 2**20:.1f} MiB")
+    check_physical(torch, sol, irr, upd, (120.0, 340.0))
+    t = statistics.median(walls(torch, lambda: run(inp), 3))
+    print(f"  refresh + update wall {t * 1e3:.1f} ms (median of 3, "
+          f"{NCOL_SLICE / t:.0f} columns/s); peak device memory "
+          f"{peak / 2**20:.1f} MiB")
     if profile:
         device_profile(torch, "Chou refresh + update", lambda: run(inp), 1,
                        top=10)
+
+
+def rrtmgp_phase(torch, step, profile=False):
+    """The RRTMGP facade at full width through radiation_refresh +
+    radiation_update: K3, K4 and K5 once each per refresh on the inputs
+    this path gives them, held to their twins; the refresh against
+    plain=True on the card; physics; times and peak memory (with profile,
+    where its time goes). Returns the launches of the kernel run."""
+    from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
+                                                         Scheme)
+    from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
+        mean_cos_zenith
+    from geosradiation_gridcomp_tpu_torch.driver.radiation import (
+        _common_derived)
+    from geosradiation_gridcomp_tpu_torch.driver.step import (
+        radiation_refresh, radiation_update)
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import mid_heights
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
+        NGS_LW, taumol_lw)
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
+        NGS_SW, taumol_sw)
+    from geosradiation_gridcomp_tpu_torch.models.rrtmgp import kdist, rte
+    from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme
+
+    inp, ict, icb, mods = step["inp"], step["ict"], step["icb"], step["mods"]
+    cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
+
+    def refresh(plain=False):
+        return radiation_refresh(inp, DOY, UTC, config=cfg, ict=ict,
+                                 icb=icb, plain=plain, **mods)
+
+    def run(plain):
+        sol, irr = refresh(plain)
+        return sol, irr, radiation_update(sol, irr, inp.tsinst + 0.5,
+                                          inp.lons, inp.lats, inp.ple, DOY,
+                                          UTC + 0.25, config=cfg)
+
+    print(f"rrtmgp: RRTMGP facade radiation_refresh + radiation_update at "
+          f"{inp.t.shape[0]} x {NLEV}:")
+    # each kernel's inputs on this path, kept to hold it to its twin
+    wrapped = {"taumol_lw": (kdist, "taumol_lw_fast"),
+               "taumol_sw": (kdist, "taumol_sw_fast"),
+               "rtrnmc": (rte, "rtrnmc_fast")}
+    saved = {k: getattr(m, a) for k, (m, a) in wrapped.items()}
+    calls = {}
+
+    def recorder(name):
+        def wrapper(*args, **kwargs):
+            calls.setdefault(name, (args, kwargs))
+            return saved[name](*args, **kwargs)
+        return wrapper
+    try:
+        for k, (m, a) in wrapped.items():
+            setattr(m, a, recorder(k))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        sol, irr, upd = run(plain=False)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for k, (m, a) in wrapped.items():
+            setattr(m, a, saved[k])
+    print(f"  kernel launches in the rrtmgp path: {launches}")
+    want = dict.fromkeys(wrapped, 1)
+    if launches != want:
+        raise AssertionError(f"rrtmgp path launched {launches}, not {want}")
+
+    args, kw = calls["taumol_lw"]
+    print(f"  K3 on {tuple(args[0].jp.shape)}, K5 on "
+          f"{tuple(calls['taumol_sw'][0][0].jp.shape)}, K4 on "
+          f"{tuple(calls['rtrnmc'][0][1].shape)}")
+    for name, x, y in zip(("taug", "pfracs"), saved["taumol_lw"](*args, **kw),
+                          taumol_lw(*args, **kw)):
+        gate(f"K3 {name} vs its twin, worst band", band_relmax(x, y, NGS_LW),
+             5e-4)
+    args, kw = calls["taumol_sw"]
+    for name, x, y in zip(("taug", "taur"), saved["taumol_sw"](*args, **kw),
+                          taumol_sw(*args, **kw)):
+        gate(f"K5 {name} vs its twin, worst band", band_relmax(x, y, NGS_SW),
+             5e-4)
+    args, kw = calls["rtrnmc"]
+    a, b = saved["rtrnmc"](*args, **kw), rtrnmc(*args, **kw)
+    err, name = max((relmax(a[k], b[k]), k) for k in b)
+    gate(f"K4 vs its twin, worst ({name})", err, 5e-4)
+    del a, b
+    ms = {k: time_ms(torch, lambda: saved[k](*calls[k][0], **calls[k][1]),
+                     20) for k in saved}
+    print(f"  on this path's inputs (CUDA events, mean of 20): K3 "
+          f"{ms['taumol_lw']:.4f}, K4 {ms['rtrnmc']:.4f}, K5 "
+          f"{ms['taumol_sw']:.4f} ms")
+    del calls, args, kw
+
+    ref = run(plain=True)
+    flips = []
+    for name, a, b in state_and_export_pairs(sol, irr, upd, ref):
+        lw = name.startswith(("IrradState", "lw ")) or name in ("alw", "blw")
+        gate(f"{name} relmax", relmax(a, b), 5e-5 if lw else 5e-4)
+        if not lw:
+            flips.append((flipped_share(a, b), name))
+    worst = max(flips)
+    gate(f"flipped column share, worst ({worst[1]})", worst[0], 5e-3)
+    heating_rate_gates(upd["dtdt"], ref[2]["dtdt"], inp.ple,
+                       ref[2]["sw"]["fsw"], ref[2]["lw"]["flw"], 5e-4, 5e-5)
+    check_physical(torch, sol, irr, upd, (150.0, 350.0))
+    del ref
+
+    # the clear sky against the RRTMG step (reported); spcvmc floors mu0
+    # at 1e-4, rte_sw at 1e-6, so grazing-sun columns are also shown apart
+    sol_g, irr_g = step["refresh"](False)
+    slr, lit = mean_cos_zenith(inp.lons, inp.lats, DOY, UTC,
+                               cfg.solar_dt / 3600.0)
+    cosz = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
+                       torch.zeros_like(slr))
+    sun = cosz >= 1e-4
+    print(f"  clear sky against the RRTMG step: flcn max |diff| "
+          f"{max_abs(sol.flcn[sun], sol_g.flcn[sun]):.4e} of the TOA "
+          f"insolation where cos zenith >= 1e-4 ("
+          f"{max_abs(sol.flcn, sol_g.flcn):.4e} over all columns), flc max "
+          f"|diff| {max_abs(irr.flc, irr_g.flc):.4f} W/m^2")
+    del sol_g, irr_g
+
+    t_kern = walls(torch, refresh, 3)
+    t_plain = walls(torch, lambda: refresh(True), 1)
+    play = _common_derived(inp)[0]
+    zm = mid_heights(play, inp.t, inp.ple[..., -1])
+    draws = {ng: time_ms(torch, lambda: scheme._gen_max_ran_mask(
+        play, zm, inp.lats, DOY, inp.fcld, ng, mods["lw"].zcw_cols(1)), 2)
+        for ng in (112, 140)}
+    print(f"  radiation_refresh wall {statistics.median(t_kern) * 1e3:.1f} "
+          f"ms (median of 3; {[round(t * 1e3, 1) for t in t_kern]}), "
+          f"{time_ms(torch, refresh, 3):.1f} ms by CUDA events (mean of 3); "
+          f"plain {t_plain[0] * 1e3:.1f} ms; the McICA draws "
+          f"(_gen_max_ran_mask) SW {draws[112]:.1f} + LW {draws[140]:.1f} "
+          f"ms by CUDA events; peak device memory {peak / 2**20:.1f} MiB")
+    if profile:
+        device_profile(torch, "RRTMGP refresh", refresh, 1, top=12)
+    return launches
+
+
+def rrtmgp_native_phase(torch, step, profile=False):
+    """RRTMGP through the native engine (an ingested coefficient set: the
+    synthetic one, written to build/) at full width on the card, where no
+    kernel may launch, against the same functions on the CPU on the first
+    256 columns (with profile, where its time goes)."""
+    import os
+
+    from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
+                                                         Scheme)
+    from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
+        mean_cos_zenith
+    from geosradiation_gridcomp_tpu_torch.driver.radiation import \
+        AtmosInputs
+    from geosradiation_gridcomp_tpu_torch.driver.step import (
+        radiation_refresh, radiation_update)
+    from geosradiation_gridcomp_tpu_torch.kernels.build import (BUILD_DIR,
+                                                                LAUNCHES)
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import RRTMGLW
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.sw import RRTMGSW
+
+    inp, ict, icb, mods = step["inp"], step["ict"], step["icb"], step["mods"]
+    paths = [os.path.join(os.path.dirname(BUILD_DIR),
+                          f"rrtmgp_kdist_{b}.npz") for b in ("lw", "sw")]
+    os.makedirs(os.path.dirname(BUILD_DIR), exist_ok=True)
+    for p in paths:
+        save_kdist_npz(synthetic_kdist(), p)
+    cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP,
+                          rrtmgp_kdist_lw=paths[0], rrtmgp_kdist_sw=paths[1],
+                          outputs=frozenset({"olrb"}))
+
+    def run(x, m):
+        sol, irr = radiation_refresh(x, DOY, UTC, config=cfg, ict=ict,
+                                     icb=icb, **m)
+        return sol, irr, radiation_update(sol, irr, x.tsinst + 0.5, x.lons,
+                                          x.lats, x.ple, DOY, UTC + 0.25,
+                                          config=cfg)
+
+    print(f"rrtmgp_native: RRTMGP native engine (synthetic 2-band set, "
+          f"{paths[0]}) radiation_refresh + radiation_update at "
+          f"{inp.t.shape[0]} x {NLEV}:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    sol, irr, upd = run(inp, mods)
+    torch.cuda.synchronize()
+    launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    print(f"  kernel launches in the rrtmgp_native path: {launches}")
+    if launches:
+        raise AssertionError(f"the native path launched {launches}")
+    if tuple(irr.olrb.shape) != (inp.t.shape[0], 2):
+        raise AssertionError(f"olrb has shape {tuple(irr.olrb.shape)}, not "
+                             f"({inp.t.shape[0]}, 2)")
+    n = 256
+    head = AtmosInputs(*(x[:n].cpu() for x in inp))
+    cpu = run(head, dict(sw=RRTMGSW.from_reference_tables("cpu"),
+                         lw=RRTMGLW.from_reference_tables("cpu")))
+    pairs = state_and_export_pairs(sol, irr, upd, cpu)
+    # where the refresh's sun grazes the horizon (0 < cos zenith < 1e-4)
+    # rte_sw_native floors mu0 at 1e-4 while the driver normalizes by the
+    # cosine itself (the reference's two floors), so the normalized SW
+    # state there is (1e-4 / cos) times the insolation fraction and takes
+    # on the card-vs-CPU difference of the cosine itself: held apart
+    slr, lit = mean_cos_zenith(inp.lons, inp.lats, DOY, UTC,
+                               cfg.solar_dt / 3600.0)
+    cosz = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
+                       torch.zeros_like(slr))
+    grazing_all = (cosz > 0.0) & (cosz < 1e-4)
+    grazing = grazing_all[:n].cpu()
+    err, name = max((relmax(a[:n].cpu()[~grazing], b[~grazing]), name)
+                    for name, a, b in pairs)
+    gate(f"card vs CPU relmax, worst of {len(pairs)} ({name})", err, 5e-5)
+    if bool(grazing.any()):
+        err, name = max((relmax(a[:n].cpu()[grazing], b[grazing]), name)
+                        for name, a, b in pairs)
+        print(f"  the {int(grazing.sum())} grazing-sun columns apart: card vs "
+              f"CPU relmax {err:.3e} ({name}; reported)")
+    heating_rate_gates(upd["dtdt"][:n].cpu(), cpu[2]["dtdt"],
+                       inp.ple[:n].cpu(), cpu[2]["sw"]["fsw"],
+                       cpu[2]["lw"]["flw"], 5e-5, 5e-5)
+    # the synthetic set's Planck table (10-60 W/m^2 a band) gives ~30;
+    # at grazing sun the normalized SW exceeds 1 by the two floors' ratio
+    if bool(grazing_all.any()):
+        print(f"  {int(grazing_all.sum())} grazing-sun columns of "
+              f"{inp.t.shape[0]}, SW net / TOA insolation max "
+              f"{float(sol.flxn[grazing_all].max()):.4f} there (reported)")
+    check_physical(torch, sol, irr, upd, (10.0, 70.0), ~grazing_all)
+    t = walls(torch, lambda: run(inp, mods), 3)
+    print(f"  refresh + update wall {statistics.median(t) * 1e3:.1f} ms "
+          f"(median of 3); peak device memory {peak / 2**20:.1f} MiB")
+    if profile:
+        device_profile(torch, "native RRTMGP refresh + update",
+                       lambda: run(inp, mods), 1, top=10)
+    return launches
 
 
 def driver_phase(torch, step, profile=False):
@@ -1183,6 +1523,8 @@ def main():
         require_launched(paths[path], path)
     paths["rats"] = rats_phase(torch, step, args.profile)
     chou_phase(torch, dev, args.profile)
+    paths["rrtmgp"] = rrtmgp_phase(torch, step, args.profile)
+    paths["rrtmgp_native"] = rrtmgp_native_phase(torch, step, args.profile)
     paths["driver"] = driver_phase(torch, step, args.profile)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "geosradiation_gridcomp_tpu"))

@@ -1,11 +1,10 @@
 """Radiation driver: intermittent refresh + cheap per-heartbeat updates.
 
-Port of geosradiation_gridcomp_tpu/driver/radiation.py, RRTMG and
-Chou-Suarez branches: SOLAR `solar_refresh` (with the optional aerosol and
-the no-aerosol second pass) and `solar_update`; IRRAD `irrad_refresh`
-(likewise) and `irrad_update`; `heating_rates` and
-`surface_lw_linearization`. The RRTMGP branches raise NotImplementedError
-(ROADMAP Queue 1 C). The composite heating-rate synthesis matches
+Port of geosradiation_gridcomp_tpu/driver/radiation.py, its RRTMG,
+Chou-Suarez and RRTMGP branches: SOLAR `solar_refresh` (with the optional
+aerosol and the no-aerosol second pass) and `solar_update`; IRRAD
+`irrad_refresh` (likewise) and `irrad_update`; `heating_rates` and
+`surface_lw_linearization`. The composite heating-rate synthesis matches
 GEOS_RadiationGridComp.F90:798-819.
 
 AtmosInputs carries the SOLAR/IRRAD import fields as column batches of
@@ -24,6 +23,7 @@ from ..models.chou_sw import chou_sw
 from ..models.rrtmg.lw import (RRTMGLW, level_temperatures, mid_heights,
                                rrtmg_lw)
 from ..models.rrtmg.sw import RRTMGSW, rrtmg_sw
+from ..models.rrtmgp.scheme import rrtmgp_lw, rrtmgp_sw
 from .astronomy import earth_sun_factor
 from .diagnostics import UNDEF, band_brightness_temperature
 from .state import IrradState, SolarState
@@ -115,10 +115,12 @@ def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
     aerosol-free pass fills the no-aerosol internals; without aerosols
     they alias the all-sky ones, as in the reference. sw: the RRTMGSW
     holding the tables (built on the inputs' device when None and the
-    scheme is RRTMG). plain=True runs the kernels' plain PyTorch twins
-    (see rrtmg_sw); the Chou-Suarez scheme has no kernel.
+    scheme is RRTMG or RRTMGP, whose facade and cloud optics use them).
+    plain=True runs the kernels' plain PyTorch twins (see rrtmg_sw and
+    rrtmgp_sw); the Chou-Suarez scheme and RRTMGP's native engine have no
+    kernel.
     """
-    if sw is None and config.sw_scheme == Scheme.RRTMG:
+    if sw is None and config.sw_scheme in (Scheme.RRTMG, Scheme.RRTMGP):
         sw = RRTMGSW.from_reference_tables(inp.t.device)
     st = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa,
                              asya, nlit, ncld, sw, plain)
@@ -154,12 +156,46 @@ def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
             drband_n=out["drband"], dfband_n=out["dfband"],
             cldfrc=_undef_cldfrc(cosz),
             flxnan=undef, flcnan=undef, flxunan=undef)
-    if config.sw_scheme == Scheme.RRTMGP:
-        raise NotImplementedError(
-            "RRTMGP SW is not ported yet (ROADMAP Queue 1 C: RRTMGP)")
     play, h2ovmr, o3vmr = _common_derived(inp)
     zm = mid_heights(play, inp.t, inp.ple[..., -1])
     ciwp, clwp = _incloud_paths(inp)
+    # normalize by refresh-time TOA insolation
+    s0 = config.effective_scon() * torch.clamp(cosz, min=1e-6)
+    inv = torch.where(cosz > 0.0, 1.0 / s0, torch.zeros_like(s0))
+
+    def nv(x):
+        return x * inv.reshape((-1,) + (1,) * (x.ndim - 1))
+    if config.sw_scheme == Scheme.RRTMGP:
+        out = rrtmgp_sw(sw, inp.ple, play, inp.t, cosz,
+                        inp.albvr, inp.albvf, inp.albnr, inp.albnf,
+                        h2ovmr, o3vmr, inp.co2, inp.ch4,
+                        torch.full_like(inp.co2, 0.2095),
+                        inp.fcld, ciwp, clwp, inp.ri, inp.rl,
+                        zm, inp.lats, doy,
+                        taua=taua, ssaa=ssaa, asya=asya,
+                        iceflag=config.iceflag_sw,
+                        liqflag=config.liqflag_sw,
+                        inhm=config.condensate_inhomogeneity,
+                        kdist_path=config.rrtmgp_kdist_sw, plain=plain)
+        # the RRTMGP path gives broadband and direct fluxes only: the
+        # band diagnostics read the GEOS missing-data marker (MAPL_UNDEF),
+        # "not available" rather than silent zeros; PAR direct/diffuse
+        # carry the surface direct and diffuse, UV and NIR read zero
+        zb = torch.full(cosz.shape + (14,), UNDEF, dtype=out["bbfd"].dtype,
+                        device=cosz.device)
+        zc = torch.zeros_like(cosz)
+        sfc_dir = nv(out["bbfddir"][:, -1])
+        undef = _undef_like(out["bbfd"])
+        return SolarState(
+            flxn=nv(out["bbfd"] - out["bbfu"]),
+            flcn=nv(out["bbcd"] - out["bbcu"]),
+            flxun=nv(out["bbfu"]), flcun=nv(out["bbcu"]),
+            fdir_uv_n=zc, fdif_uv_n=zc,
+            fdir_par_n=sfc_dir, fdif_par_n=nv(out["bbfd"][:, -1]) - sfc_dir,
+            fdir_nir_n=zc, fdif_nir_n=zc,
+            flx_sfc_band_n=zb, drband_n=zb, dfband_n=zb,
+            cldfrc=_undef_cldfrc(cosz),
+            flxnan=undef, flcnan=undef, flxunan=undef)
     out = rrtmg_sw(sw, inp.ple, play, inp.t, cosz,
                    inp.albvr, inp.albvf, inp.albnr, inp.albnf,
                    h2ovmr, o3vmr, inp.co2, inp.ch4,
@@ -176,12 +212,6 @@ def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
                    cloud_mh=ict, cloud_lm=icb,
                    inhm=config.condensate_inhomogeneity, nlit=nlit,
                    ncld=ncld, plain=plain)
-    # normalize by refresh-time TOA insolation
-    s0 = config.effective_scon() * torch.clamp(cosz, min=1e-6)
-    inv = torch.where(cosz > 0.0, 1.0 / s0, torch.zeros_like(s0))
-
-    def nv(x):
-        return x * inv.reshape((-1,) + (1,) * (x.ndim - 1))
     if config.wants("clear_counts"):
         cldfrc = 1.0 - out["clear_counts"].to(out["bbfd"].dtype) / 112.0
     else:
@@ -243,18 +273,18 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
 
     taua/ssaa/asya: LW aerosol optics; Chou-Suarez takes all three
     [ncol, nlay, 10], RRTMG-LW (absorption-only) taua alone
-    [ncol, nlay, 16]. lw: the RRTMGLW holding the tables (built from the
-    reference tables on the inputs' device when None). plain=True runs the
-    kernels' plain PyTorch twins on any device (see rrtmg_lw); the
-    Chou-Suarez scheme has no kernel.
+    [ncol, nlay, 16]; RRTMGP takes none. lw: the RRTMGLW holding the
+    tables (built from the reference tables on the inputs' device when
+    None). plain=True runs the kernels' plain PyTorch twins on any device
+    (see rrtmg_lw and rrtmgp_lw); the Chou-Suarez scheme and RRTMGP's
+    native engine have no kernel.
     """
     if config.lw_scheme == Scheme.CHOU:
         return _chou_irrad_refresh(inp, config, ict, icb, taua, ssaa, asya)
-    if config.lw_scheme == Scheme.RRTMGP:
-        raise NotImplementedError(
-            "RRTMGP LW is not ported yet (ROADMAP Queue 1 C: RRTMGP)")
     if lw is None:
         lw = RRTMGLW.from_reference_tables(inp.t.device)
+    if config.lw_scheme == Scheme.RRTMGP:
+        return _rrtmgp_irrad_refresh(inp, doy, config, lw, plain)
     play, h2ovmr, o3vmr = _common_derived(inp)
     ncol = inp.t.shape[0]
     emis16 = inp.emis[:, None].expand(ncol, 16)
@@ -310,6 +340,44 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
         dolrb_dts=(out.get("dolrb_dts", zb)
                    if config.ts_derivs and wants_olrb else zb),
         flxa=flxa, fla=fla, dfdtsna=dfdtsna, dfdtscna=dfdtscna)
+
+
+def _rrtmgp_irrad_refresh(inp, doy, config, lw, plain):
+    play, h2ovmr, o3vmr = _common_derived(inp)
+    ncol = inp.t.shape[0]
+    zm = mid_heights(play, inp.t, inp.ple[..., -1])
+    ciwp, clwp = _incloud_paths(inp)
+    out = rrtmgp_lw(lw, inp.ple, play, inp.t, inp.tsinst,
+                    inp.emis[:, None].expand(ncol, 16),
+                    h2ovmr, o3vmr, inp.co2, inp.ch4, inp.n2o,
+                    torch.full_like(inp.co2, 0.2095),
+                    inp.cfc11, inp.cfc12, inp.hcfc22,
+                    inp.fcld, ciwp, clwp, inp.ri, inp.rl,
+                    zm, inp.lats, doy,
+                    iceflag=config.iceflag_lw, liqflag=config.liqflag_lw,
+                    inhm=config.condensate_inhomogeneity,
+                    dudts=config.ts_derivs,
+                    kdist_path=config.rrtmgp_kdist_lw, plain=plain)
+    net = out["flux_dn"] - out["flux_up"]
+    clr = out["flux_dn_clr"] - out["flux_up_clr"]
+    if config.ts_derivs:
+        dfdts, dfdtsc = -out["duflx_dts"], -out["duflxc_dts"]
+    else:
+        dfdts = dfdtsc = torch.zeros_like(net)
+    sfcem = -(out["flux_up"][:, -1]
+              - out["flux_dn"][:, -1] * (1.0 - inp.emis))
+    zb = torch.zeros((ncol, 16), dtype=net.dtype, device=net.device)
+    wants_olrb = config.wants("olrb")
+    return IrradState(
+        flx=net, flc=clr, flxu=out["flux_up"], flxd=out["flux_dn"],
+        dfdts=dfdts, sfcem=sfcem, ts=inp.tsinst,
+        olrb=out["olrb"] if wants_olrb else zb,
+        dolrb_dts=(out["dolrb_dts"] if config.ts_derivs and wants_olrb
+                   else zb),
+        # the RRTMGP LW path takes no aerosol optics: the no-aerosol
+        # fluxes alias the all-sky ones, DFDTSCNA the clear-sky
+        # derivative (GEOS_IrradGridComp.F90:3127,3556)
+        flxa=net, fla=clr, dfdtsna=dfdts, dfdtscna=dfdtsc)
 
 
 def _chou_irrad_refresh(inp, config, ict, icb, taua, ssaa, asya):

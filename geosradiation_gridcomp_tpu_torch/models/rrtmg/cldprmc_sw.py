@@ -145,14 +145,17 @@ def band_optics_coeffs_sw(reice, reliq, tables, iceflag=3, liqflag=1):
             extcoliq, ssacoliq, gliq, forwliq)
 
 
-def cldprmc_from_band_coeffs_sw(cldymc, ciwpmc, clwpmc, coeffs):
+def cldprmc_from_band_coeffs_sw(cldymc, ciwpmc, clwpmc, coeffs,
+                                band_g=BAND_G):
     """Delta-scaled cloud optics per g-point from the 8 band planes.
 
     cldymc [..., ngpt, nlay] bool; ciwpmc/clwpmc same shape (g/m^2);
-    coeffs: the 8 planes of band_optics_coeffs_sw, [..., nlay, 14].
+    coeffs: the 8 planes of band_optics_coeffs_sw, [..., nlay, 14];
+    band_g: the 0-based band of each of the ngpt points (the RRTMG
+    g-points; np.arange(14) evaluates one point per band).
     Returns (taucmc, ssacmc, asmcmc, taormc), each [..., ngpt, nlay].
     """
-    band_g = torch.as_tensor(BAND_G, device=ciwpmc.device)
+    band_g = torch.as_tensor(band_g, device=ciwpmc.device)
     (extcoice, ssacoice, gice, forwice,
      extcoliq, ssacoliq, gliq, forwliq) = (
         x[..., band_g].transpose(-1, -2) for x in coeffs)

@@ -99,8 +99,10 @@ class RRTMGSW(nn.Module):
 
     def solar_sources(self, svw):
         """Per-band solar-source tables for the NRLSSI2 weights svw, as
-        float32 tensors on the module's device."""
-        key = tuple(np.asarray(w).tobytes() for w in svw)
+        float32 tensors on the module's device; svw None: sfluxref
+        alone."""
+        key = None if svw is None else tuple(np.asarray(w).tobytes()
+                                             for w in svw)
         if key not in self._sources:
             self._sources[key] = {
                 b: torch.as_tensor(v, device=self.preflog.device)

@@ -23,7 +23,10 @@ once per gas) against the twins, every gas <= 5e-5, and K3 <= 5e-4 per
 band on each gas's inputs; the Chou-Suarez
 refresh + update on the card against the same functions on the CPU
 <= 5e-5 (no kernel launched); a checkpoint loaded onto the card, and a
-run restarted from it bitwise equal to the uninterrupted run.
+run restarted from it bitwise equal to the uninterrupted run. RRTMGP: the
+facade refresh launches K3, K4 and K5 once each and nothing else, its
+states against plain=True at the step's gates; the native engine on the
+card launches no kernel and is within 5e-5 of the CPU.
 """
 
 import pytest
@@ -416,6 +419,54 @@ def test_step_runs_the_kernels(case):
         assert relmax(getattr(irr, f), getattr(irr_p, f)) <= 5e-5, f
     for f in sol._fields:
         assert relmax(getattr(sol, f), getattr(sol_p, f)) <= 5e-4, f
+
+
+def test_rrtmgp_refresh_runs_k3_k4_k5(case):
+    """The RRTMGP facade: K3, K4 and K5 once each per refresh, no other
+    kernel; the states against plain=True at the step's gates."""
+    cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
+    kw = dict(config=cfg, ict=69, icb=71, sw=case["sw"], lw=case["lw"])
+    LAUNCHES.clear()
+    sol, irr = step.radiation_refresh(case["inp"], DOY, 12.0, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"taumol_lw": 1, "rtrnmc": 1, "taumol_sw": 1}
+    sol_p, irr_p = step.radiation_refresh(case["inp"], DOY, 12.0,
+                                          plain=True, **kw)
+    for f in irr._fields:
+        assert relmax(getattr(irr, f), getattr(irr_p, f)) <= 5e-5, f
+    for f in sol._fields:
+        assert relmax(getattr(sol, f), getattr(sol_p, f)) <= 5e-4, f
+
+
+def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):
+    """RRTMGP through the native engine (chip_smoke's synthetic 2-band
+    set) on the card: no kernel launched, within 5e-5 of the CPU."""
+    from chip_smoke import save_kdist_npz, synthetic_kdist
+    paths = [str(tmp_path / f"{b}.npz") for b in ("lw", "sw")]
+    for p in paths:
+        save_kdist_npz(synthetic_kdist(), p)
+    cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP,
+                          rrtmgp_kdist_lw=paths[0], rrtmgp_kdist_sw=paths[1],
+                          outputs=frozenset({"olrb"}))
+    outs = []
+    for device in (dev, "cpu"):
+        inp = example_inputs(64, NLEV, device=device)
+        LAUNCHES.clear()
+        sol, irr = step.radiation_refresh(inp, DOY, 12.0, config=cfg,
+                                          ict=69, icb=71)
+        upd = step.radiation_update(sol, irr, inp.tsinst + 0.5, inp.lons,
+                                    inp.lats, inp.ple, DOY, 12.25,
+                                    config=cfg)
+        assert not LAUNCHES
+        outs.append((sol, irr, upd))
+    (sol, irr, upd), (sol_c, irr_c, upd_c) = outs
+    assert tuple(irr.olrb.shape) == (64, 2)
+    for a, b in ((sol, sol_c), (irr, irr_c)):
+        for f in a._fields:
+            assert relmax(getattr(a, f).cpu(), getattr(b, f)) <= 5e-5, f
+    for group in ("sw", "lw"):
+        for k in upd_c[group]:
+            assert relmax(upd[group][k].cpu(), upd_c[group][k]) <= 5e-5, k
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(case):

@@ -235,7 +235,12 @@ def test_physical_fluxes(runs):
 
 @pytest.mark.parametrize("scheme", [TScheme.RRTMGP])
 def test_unported_sw_schemes_raise(scheme):
+    """RRTMGP, once the SW scheme the port lacked, no longer raises: its
+    branch returns a finite SolarState whose band fields read UNDEF
+    (tests/test_torch_rrtmgp_driver.py holds it to the oracle)."""
     ti = example_inputs(2, 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trad.solar_refresh(ti, torch.full((2,), 0.5), DOY,
-                           TConfig(sw_scheme=scheme), 3, 6)
+    st = trad.solar_refresh(ti, torch.full((2,), 0.5), DOY,
+                            TConfig(sw_scheme=scheme), 3, 6)
+    assert all(torch.isfinite(x).all() for x in st)
+    assert bool((st.drband_n == trad.UNDEF).all())
+    assert float(st.flxn[:, 0].min()) > 0.0
