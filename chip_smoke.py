@@ -101,7 +101,31 @@ nvcc per source side by side, then:
    (build/driver_checkpoint.npz) and restarted from
    load_checkpoint(device="cuda"): every export of the restarted run
    bitwise equal to the uninterrupted run's; the update's wall time per
-   heartbeat.
+   heartbeat;
+11. satsim phase: cosp_simulator (SatsimConfig(): 50 subcolumns, every
+   simulator, the 40-bin CloudSat stat grid) at 8192 points x 50
+   subcolumns x 72 levels on a scene made from the realistic one
+   (satsim_inputs), key 11: no kernel may launch; every group and key
+   present, each value finite or one of the reference's fill values, the
+   ranges the reference's satsim tests check; the same call on the first
+   256 points on the card and on the CPU: frac_out, prec_frac and the
+   MODIS phases identical, fill values in the same places, every other
+   float within relmax 5e-5 (meantaucld in albedo space), the histogram
+   counts compared and any flipped count reported; wall time (median of
+   3), CUDA-event time, the radar alone and the peak device memory;
+12. parallel phase: the step's refresh through shard_columns(
+   column_mesh(), inp) + run_sharded at 8192 x 72, bitwise equal to the
+   unsharded refresh, K1-K6 launched; in two shards on the one card,
+   bitwise equal but for the McICA cover of dark columns (each shard's
+   own packing bound, reported); pad_columns from 8197 to 8200 columns,
+   the first 8197 equal to the unpadded refresh likewise; bench.py's
+   staged workload (8 host batches of 4096 x 72, seeds 0-7) through
+   run_steps_overlapped and through a serial put/get/step/synchronize
+   loop: outputs bitwise equal, columns/s of both and their ratio, and a
+   torch.profiler trace of the overlapped run (build/staged_trace.json):
+   the streams of the host-to-device copies from pinned memory and of the
+   kernels, and the share of the copies' time that overlapped a kernel
+   of another stream.
 
 Then it checks that neither jax nor any module of the reference package
 geosradiation_gridcomp_tpu was loaded.
@@ -116,14 +140,14 @@ band_optics_coeffs_sw (K1 and K2 derive the subkeys, K2 the SW band
 optics, on the card), and the solar_refresh and irrad_refresh stages
 alone, beside subcolumn_keys, now off the kernel path (CUDA events);
 and the same device profile of the RATS refresh, the Chou refresh +
-update, the RRTMGP facade refresh, the native RRTMGP refresh + update
-and a heartbeat's radiation_update + rats_update.
+update, the RRTMGP facade refresh, the native RRTMGP refresh + update,
+a heartbeat's radiation_update + rats_update and cosp_simulator.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
 profiling; launches_per_refresh for the step kernels; launches_by_path
 on every path that launched it, K1, K3 and K4 also on rats, K3, K4 and
-K5 also on rrtmgp), error,
+K5 also on rrtmgp, K1-K6 also on driver and parallel), error,
 times, bound and library time, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
@@ -1312,6 +1336,441 @@ def driver_phase(torch, step, profile=False):
     return launches
 
 
+def satsim_inputs(torch, ncol, dev):
+    """The satellite simulators' inputs from the realistic scene
+    (scene.example_inputs, seed SEED): edge heights by hypsometric
+    integration of ple and t from the surface; 2e-5 kg/kg rain from the
+    top of a column's low deck (sigma 0.78-0.92, cloudy) to the surface
+    and 1e-5 snow from the top of its mid deck (0.42-0.58), as the
+    reference's cosp test puts rain below its cloud
+    (tests/test_satsim_cosp.py:38); no graupel; the scene's radii in
+    metres, graupel's 150 um; mcosz the mean cosine of the zenith over
+    the refresh interval at doy DOY, UTC; land on the second half of the
+    points."""
+    from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
+    from geosradiation_gridcomp_tpu_torch.constants import AMD, GRAV, RGAS
+    from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
+        mean_cos_zenith
+    from geosradiation_gridcomp_tpu_torch.satsim import SatsimInputs
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+
+    inp = example_inputs(ncol, NLEV, seed=SEED, device=dev)
+    ple, t = inp.ple, inp.t
+    dz = (RGAS * 1000.0 / AMD / GRAV) * t * torch.log(ple[:, 1:]
+                                                      / ple[:, :-1])
+    zle = torch.cat([dz.flip(-1).cumsum(-1).flip(-1),
+                     torch.zeros_like(dz[:, :1])], dim=-1)
+    sigma = 0.5 * (ple[:, 1:] + ple[:, :-1]) / ple[:, -1:]
+    lev = torch.arange(NLEV, device=dev)
+
+    def below_deck(lo, hi, q):
+        deck = (sigma > lo) & (sigma < hi) & (inp.fcld > 0.0)
+        top = torch.argmax(deck.to(torch.int8), dim=1)
+        return torch.where(deck.any(dim=1)[:, None] & (lev >= top[:, None]),
+                           q, 0.0)
+    qr = below_deck(0.78, 0.92, 2e-5)
+    mcosz = mean_cos_zenith(inp.lons, inp.lats, DOY, UTC,
+                            RadiationConfig().solar_dt / 3600.0)[0]
+    return SatsimInputs(
+        ple=ple, zle=zle, t=t, qv=inp.qv, fcld=inp.fcld, qi=inp.qi,
+        ql=inp.ql, qr=qr, qs=below_deck(0.42, 0.58, 1e-5),
+        qg=torch.zeros_like(qr), ri=inp.ri * 1e-6, rl=inp.rl * 1e-6,
+        rr=inp.rr * 1e-6, rs=inp.rs * 1e-6, rg=torch.full_like(qr, 150e-6),
+        ts=inp.ts, mcosz=mcosz,
+        frland=(torch.arange(ncol, device=dev) >= ncol // 2).to(t.dtype))
+
+
+# the reference's fill values (R_UNDEF, MISSING, UNDEF and UNDEF - 1;
+# MISSING_DBZ; MODIS RE_FILL in m; R_GROUND) and the satsim fields that are
+# a count of subcolumns over ncol
+SATSIM_FILLS = (-1.0e30, -999.0, -999.0e-6, -1.0e20)
+SATSIM_COUNTS = ("fq_isccp", "totalcldarea", "fq_misr", "cldarea",
+                 "tau_vs_ctp", "cf_total", "cf_water", "cf_ice", "cf_high",
+                 "cf_mid", "cf_low", "cfad_sr", "cfad_dbze",
+                 "lidar_only_freq_cloud", "radar_lidar_tcc")
+
+
+def satsim_fill(torch, x):
+    fills = torch.tensor(SATSIM_FILLS, dtype=x.dtype, device=x.device)
+    return torch.isin(x, fills) | (x.abs() >= 1e29)
+
+
+def satsim_leaves(out, prefix=""):
+    """(group/key, tensor) of every output of cosp_simulator."""
+    for k, v in out.items():
+        if isinstance(v, dict):
+            yield from satsim_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def satsim_checks(torch, out, cfg, npnt):
+    """Every group and key present; each value finite or one of the
+    reference's fill values; the ranges the reference's tests check
+    (tests/test_satsim_*.py)."""
+    want = {"frac_out", "isccp", "misr", "modis", "lidar", "radar"}
+    if set(out) != want:
+        raise AssertionError(f"groups {sorted(out)}, not {sorted(want)}")
+    nkeys = dict(isccp=9, misr=5, modis=19, lidar=9, radar=7)
+    for g, n in nkeys.items():
+        if len(out[g]) != n:
+            raise AssertionError(f"{g} has keys {sorted(out[g])}")
+    for name, x in satsim_leaves(out):
+        if x.is_floating_point() and not bool(
+                (torch.isfinite(x) | satsim_fill(torch, x)).all()):
+            raise AssertionError(f"{name} has non-finite values")
+    f = out["frac_out"]
+    if tuple(f.shape) != (npnt, cfg.ncolumns, NLEV) or f.dtype != \
+            torch.int8 or not bool(((f >= 0) & (f <= 2)).all()):
+        raise AssertionError("frac_out is not int8 0/1/2 of [np, ncol, nlev]")
+
+    def within(name, x, lo, hi, fill=True):
+        v = x[~satsim_fill(torch, x)] if fill else x
+        bad = int(((v < lo) | (v > hi)).sum())
+        if bad:
+            raise AssertionError(f"{name}: {bad} values outside "
+                                 f"[{lo}, {hi}]")
+        return v
+    i, m, md, li, r = (out[g] for g in ("isccp", "misr", "modis", "lidar",
+                                        "radar"))
+    within("isccp totalcldarea", i["totalcldarea"], 0.0, 1.0)
+    within("isccp fq_isccp sums", i["fq_isccp"].sum((1, 2))[
+        i["totalcldarea"] >= 0.0], 0.0, 1.0 + 1e-5, fill=False)
+    within("isccp meanptop (mb)", i["meanptop"], 0.0, 1100.0)
+    within("isccp meantb, meantbclr (K)",
+           torch.cat([i["meantb"], i["meantbclr"]]), 150.0, 350.0)
+    within("misr cldarea", m["cldarea"], 0.0, 1.0)
+    within("misr fq_misr sums", m["fq_misr"].sum((1, 2))[
+        m["cldarea"] >= 0.0], 0.0, 1.0 + 1e-5, fill=False)
+    for k in ("cf_total", "cf_water", "cf_ice", "cf_high", "cf_mid",
+              "cf_low"):
+        within(f"modis {k}", md[k], 0.0, 1.0)
+    if not bool((md["cf_water"] + md["cf_ice"]
+                 <= md["cf_total"] + 1e-6).all()):
+        raise AssertionError("MODIS water + ice cloud beyond the total")
+    within("modis l2 phase", md["l2"]["phase"], 0, 3, fill=False)
+    within("lidar lidarcld, cldlayer",
+           torch.cat([li["lidarcld"].flatten(), li["cldlayer"].flatten()]),
+           0.0, 1.0)
+    within("lidar cfad_sr sums", li["cfad_sr"].sum(1), 0.0, 1.0 + 1e-5,
+           fill=False)
+    within("radar cfad_dbze sums", r["cfad_dbze"].sum(1), 0.0, 1.0 + 1e-5,
+           fill=False)
+    within("radar lidar-only cloud, tcc",
+           torch.cat([r["lidar_only_freq_cloud"].flatten(),
+                      r["radar_lidar_tcc"]]), 0.0, 1.0)
+    within("radar dbze (dBZe)", r["dbze"], -150.0, 80.0)
+    lit = out["isccp"]["totalcldarea"] >= 0.0
+    total = li["cldlayer"][:, 3]
+    print(f"  {int(lit.sum())} sunlit points; ISCCP cloud area mean "
+          f"{float(i['totalcldarea'][lit].mean()):.3f}, MODIS cf_total "
+          f"{float(md['cf_total'][lit].mean()):.3f}, MISR cloud area "
+          f"{float(m['cldarea'][lit].mean()):.3f}; lidar total cloud "
+          f"{float(total[total >= 0.0].mean()):.3f}"
+          f"; radar echoes above -30 dBZe in "
+          f"{float((r['dbze'] > -30.0).double().mean()) * 100:.2f} % of "
+          f"the subcolumn cells")
+
+
+def satsim_compare(torch, card, cpu, ncol):
+    """cosp_simulator on the card against the CPU, gated group by group:
+    integers exact; fill values in the same places; the other floats
+    within 5e-5 relmax (meantaucld in albedo space: its map from the mean
+    albedo a, (6.82 / (1/a - 1))^(1/0.895), amplifies a's rounding by
+    1 / (0.895 (1 - a)), over 600 at the thickest points); the count
+    fields as counts, any flipped count reported with its share. Returns
+    (flipped counts, counts)."""
+    pairs = dict(satsim_leaves(cpu))
+    groups = {}
+    flips, total = 0, 0
+    for name, a in satsim_leaves(card):
+        g = groups.setdefault(name.split("/")[0],
+                              dict(ints=0, fills=0, err=(0.0, "")))
+        a, b = a.cpu(), pairs[name]
+        if not b.is_floating_point():
+            g["ints"] += int((a != b).sum())
+            continue
+        fa, fb = satsim_fill(torch, a), satsim_fill(torch, b)
+        g["fills"] += int((fa != fb).sum())
+        a, b = a[~fb], b[~fb]
+        if name.rsplit("/", 1)[-1] in SATSIM_COUNTS:
+            ca, cb = torch.round(a * ncol), torch.round(b * ncol)
+            flips += int((ca != cb).sum())
+            total += int(cb.sum())
+            continue
+        if name.endswith("meantaucld"):
+            print(f"  {name} relmax {relmax(a, b):.3e} (reported; gated in "
+                  f"albedo space)")
+            a, b = [x.double() ** 0.895 / (x.double() ** 0.895 + 6.82)
+                    for x in (a, b)]
+        if b.numel():
+            g["err"] = max(g["err"], (relmax(a, b), name))
+    for k, g in groups.items():
+        gate(f"{k}: integer mismatches", g["ints"], 0)
+        gate(f"{k}: fill-value mismatches", g["fills"], 0)
+        gate(f"{k}: relmax, worst ({g['err'][1]})", g["err"][0], 5e-5)
+    print(f"  flipped histogram counts {flips} of {total} "
+          f"({flips / max(total, 1):.2e}; reported)")
+    return flips, total
+
+
+def satsim_phase(torch, dev, profile=False):
+    """The COSP satellite simulators at full width on the card (no
+    kernel), against the same call on the CPU on 256 points; times,
+    peak memory and the radar's share (with profile, where the time
+    goes)."""
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    from geosradiation_gridcomp_tpu_torch.ops import threefry
+    from geosradiation_gridcomp_tpu_torch.satsim import (SatsimConfig,
+                                                         SatsimInputs,
+                                                         cosp, prec_scops)
+
+    cfg = SatsimConfig()
+    inp = satsim_inputs(torch, NCOL_SLICE, dev)
+    key = threefry.key(11, device=dev)
+    print(f"satsim: cosp_simulator (SatsimConfig(): {cfg.ncolumns} "
+          f"subcolumns, every simulator, the {cfg.nlr}-bin stat grid) at "
+          f"{NCOL_SLICE} points x {NLEV} levels, key 11:")
+    # the radar's inputs, kept to time it alone
+    qb, qb_calls = cosp.quickbeam_simulator, []
+
+    def qb_recorded(*args, **kwargs):
+        qb_calls.append((args, kwargs))
+        return qb(*args, **kwargs)
+    cosp.quickbeam_simulator = qb_recorded
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = cosp.cosp_simulator(key, inp, cfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    finally:
+        cosp.quickbeam_simulator = qb
+    print(f"  kernel launches in the satsim path: {launches}")
+    if launches:
+        raise AssertionError(f"the satsim path launched {launches}")
+    satsim_checks(torch, out, cfg, NCOL_SLICE)
+    del out
+
+    n = 256
+    head = SatsimInputs(*(x[:n] for x in inp))
+    print(f"  card vs CPU on the first {n} points (their own call, key 11):")
+    card = cosp.cosp_simulator(key, head, cfg)
+    cpu_in = SatsimInputs(*(x.cpu() for x in head))
+    t0 = time.perf_counter()
+    cpu = cosp.cosp_simulator(key.cpu(), cpu_in, cfg)
+    t_cpu = time.perf_counter() - t0
+    pf = [prec_scops(x.qr + x.qs + x.qg, torch.zeros_like(x.qr),
+                     o["frac_out"]) for x, o in ((head, card),
+                                                 (cpu_in, cpu))]
+    gate("prec_frac mismatches", float((pf[0].cpu() != pf[1]).sum()), 0)
+    flips, total = satsim_compare(torch, card, cpu, cfg.ncolumns)
+    del card, cpu, pf
+
+    def run():
+        return cosp.cosp_simulator(key, inp, cfg)
+    t = walls(torch, run, 3)
+    ev = time_ms(torch, run, 3)
+    args, kw = qb_calls[0]
+    radar = time_ms(torch, lambda: qb(*args, **kw), 3)
+    print(f"  cosp_simulator wall {statistics.median(t) * 1e3:.1f} ms (median "
+          f"of 3; {[round(x * 1e3, 1) for x in t]}; first call "
+          f"{first * 1e3:.1f}), {ev:.1f} ms by CUDA events (mean of 3); "
+          f"quickbeam_simulator alone {radar:.1f} ms ({100 * radar / ev:.1f}"
+          f" % of it); peak device memory {peak / 2**20:.1f} MiB; the CPU "
+          f"call on {n} points {t_cpu:.1f} s")
+    del qb_calls, args, kw
+    if profile:
+        device_profile(torch, "cosp_simulator", run, 1, top=12)
+    return dict(flips=flips, counts=total)
+
+
+def parallel_phase(torch, step):
+    """The refresh through the column sharding and the staged feed
+    (parallel/): sharded over column_mesh() against the unsharded refresh,
+    bitwise; two shards on the one card and a padded batch against the
+    unpadded one; bench.py's staged-overlap workload through
+    run_steps_overlapped against a serial loop, with a trace of its
+    copies. Returns the launches of the sharded refresh."""
+    import os
+
+    from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
+        mean_cos_zenith
+    from geosradiation_gridcomp_tpu_torch.driver.step import (
+        radiation_refresh, sw_partition_bounds)
+    from geosradiation_gridcomp_tpu_torch.kernels.build import (BUILD_DIR,
+                                                                LAUNCHES)
+    from geosradiation_gridcomp_tpu_torch.parallel.distributed import (
+        StagedFeed, run_steps_overlapped)
+    from geosradiation_gridcomp_tpu_torch.parallel.sharding import (
+        column_mesh, pad_columns, run_sharded, shard_columns, tree_leaves,
+        tree_map)
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+
+    inp, cfg, ict, icb = step["inp"], step["cfg"], step["ict"], step["icb"]
+    mods = step["mods"]
+
+    def refresh(x):
+        """The step's refresh, its packing bounds taken from x as the step
+        phase takes them."""
+        bounds = [sw_partition_bounds(x.lons, x.lats, x.fcld, d, UTC, cfg)
+                  for d in (DOY, DOY + 0.01)]
+        nlit = None if any(b[0] is None for b in bounds) \
+            else max(b[0] for b in bounds)
+        ncld = None if any(b[1] is None for b in bounds) \
+            else max(b[1] for b in bounds)
+        return radiation_refresh(x, DOY, UTC, config=cfg, ict=ict, icb=icb,
+                                 sw_nlit=nlit, sw_ncld=ncld, **mods)
+
+    def differing(a, b, x):
+        """The state fields of a and b that are not bitwise equal, and the
+        dark columns where only cldfrc differs: a night column's McICA
+        cover is computed when it falls inside the packing bound (nlit,
+        rounded up to 256 columns) and reads clear beyond it, so it
+        follows each shard's own bound, in the reference as here."""
+        slr, lit = mean_cos_zenith(x.lons, x.lats, DOY, UTC,
+                                   cfg.solar_dt / 3600.0)
+        dark = ~((lit > 0.0) & (slr > 0.0))
+        bad, ndark = [], 0
+        for s, t in zip(a, b):
+            for f in s._fields:
+                u, v = getattr(s, f), getattr(t, f)
+                if f == "cldfrc":
+                    ndark = int((u != v).any(dim=1).sum())
+                    u, v = u[~dark], v[~dark]
+                if not torch.equal(u, v):
+                    bad.append(f"{type(s).__name__}.{f}")
+        return bad, ndark
+
+    mesh = column_mesh()
+    print(f"parallel: radiation_refresh through shard_columns(column_mesh()"
+          f", inp) + run_sharded at {inp.t.shape[0]} x {NLEV}, mesh {mesh}:")
+    want = refresh(inp)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    got = run_sharded(refresh, shard_columns(mesh, inp))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"  kernel launches in the parallel path: {launches}")
+    require_launched(launches, "step")
+    gate("sharded vs unsharded fields not bitwise equal",
+         sum(not torch.equal(getattr(s, f), getattr(t, f))
+             for s, t in zip(got, want) for f in s._fields), 0)
+    got = run_sharded(refresh, shard_columns(mesh + mesh, inp))
+    bad, ndark = differing(got, want, inp)
+    gate(f"two shards of {inp.t.shape[0] // 2} columns on the one card: "
+         f"fields not bitwise equal {bad[:3]}", len(bad), 0)
+    print(f"  (cldfrc differs in {ndark} dark columns: each shard's own "
+          f"packing bound; reported)")
+    del got, want
+
+    odd = example_inputs(8197, NLEV, seed=SEED, device=inp.t.device)
+    padded, ncol = pad_columns(odd, 8)
+    print(f"  pad_columns: {ncol} columns padded to {padded.t.shape[0]}")
+    want = refresh(odd)
+    got = run_sharded(refresh, shard_columns(mesh, padded))
+    got = tuple(type(s)(*(x[:ncol] for x in s)) for s in got)
+    bad, ndark = differing(got, want, odd)
+    gate(f"padded vs unpadded first {ncol} columns: fields not bitwise "
+         f"equal {bad[:3]}", len(bad), 0)
+    print(f"  (cldfrc differs in {ndark} dark columns; reported)")
+    del odd, padded, got, want
+
+    # bench.py:126-180: 8 distinct host-resident batches of 4096 x NLEV,
+    # seeds 0-7, the refresh without packing
+    nbatch, nb = 8, 4096
+    batches = [tree_map(lambda x: x.numpy(), example_inputs(
+        nb, NLEV, seed=s, device="cpu")) for s in range(nbatch)]
+
+    def step_fn(x):
+        return radiation_refresh(x, DOY, UTC, config=cfg, ict=ict, icb=icb,
+                                 **mods)
+
+    def overlapped():
+        outs = run_steps_overlapped(step_fn, batches)
+        torch.cuda.synchronize()
+        return outs
+
+    def serial():
+        feed, outs = StagedFeed(), []
+        for b in batches:
+            outs.append(step_fn(feed.put(b).get()))
+            torch.cuda.synchronize()
+        return outs
+
+    order = ("overlapped", "serial", "serial", "overlapped", "overlapped",
+             "serial")
+    print(f"  staged feed: {nbatch} host batches of {nb} x {NLEV} through "
+          f"run_steps_overlapped and a serial put/get/step/synchronize loop "
+          f"({', '.join(order)}):")
+    step_fn(StagedFeed().put(batches[0]).get())
+    torch.cuda.synchronize()
+    secs = {"overlapped": [], "serial": []}
+    outs = {}
+    for name in order:
+        t0 = time.perf_counter()
+        outs[name] = (overlapped if name == "overlapped" else serial)()
+        secs[name].append(time.perf_counter() - t0)
+    a = [x for o in outs["overlapped"] for x in tree_leaves(o)]
+    b = [x for o in outs["serial"] for x in tree_leaves(o)]
+    gate("overlapped vs serial outputs not bitwise equal",
+         sum(not torch.equal(x, y) for x, y in zip(a, b)), 0)
+    del outs, a, b
+    rate = {k: nbatch * nb / statistics.median(v) for k, v in secs.items()}
+    print(f"  overlapped {rate['overlapped']:.0f} columns/s, serial "
+          f"{rate['serial']:.0f} columns/s (median of 3 rounds each; "
+          f"rounds {[round(x * 1e3, 1) for x in secs['overlapped']]} / "
+          f"{[round(x * 1e3, 1) for x in secs['serial']]} ms), ratio "
+          f"{rate['overlapped'] / rate['serial']:.3f}")
+    trace = os.path.join(os.path.dirname(BUILD_DIR), "staged_trace.json")
+    copy_overlap(torch, overlapped, trace)
+    return launches
+
+
+def copy_overlap(torch, run, path):
+    """torch.profiler trace of run(): on which streams the host-to-device
+    copies from pinned memory (the staged inputs; the refresh's own
+    copies, ROADMAP H3, come from pageable memory) and the kernels ran,
+    and how much of those copies' time overlapped a kernel of another
+    stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+
+    def span(e):
+        return e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream")
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy"
+            and "HtoD" in e.get("name", "")]
+    staged = [span(e) for e in htod if "Pinned" in e["name"]]
+    kernels = [span(e) for e in events if e.get("cat") == "kernel"]
+    overlap = 0.0
+    for start, end, stream in staged:
+        last = start
+        for s, e in sorted((max(s, start), min(e, end))
+                           for s, e, k in kernels
+                           if k != stream and s < end and e > start):
+            if e > max(s, last):
+                overlap += e - max(s, last)
+                last = e
+    total = sum(e - s for s, e, _ in staged)
+    print(f"  trace ({path}): {len(htod)} host-to-device copies, "
+          f"{len(htod) - len(staged)} of them the refresh's own from "
+          f"pageable memory, {len(staged)} from pinned memory "
+          f"({total / 1e3:.3f} ms) on "
+          f"streams {sorted({c[2] for c in staged})}, kernels on streams "
+          f"{sorted({k[2] for k in kernels})}; {overlap / 1e3:.3f} ms "
+          f"({100.0 * overlap / max(total, 1e-9):.1f} %) of the pinned "
+          f"copies overlapped a kernel of another stream")
+
+
 def device_profile(torch, label, fn, nprof, top=25):
     """torch.profiler over nprof calls of fn: the wall per call under the
     profiler, the device kernel time and launches per call, the top
@@ -1509,23 +1968,38 @@ def main():
     print(f"one threefry draw: {sum(draw.values())} SASS instructions "
           f"{draw}, {1e12 * issue_seconds(draw, 1):.3f} ps on the card")
     dev = torch.device("cuda", 0)
-    launches, step, calls = step_phase(torch, dev)
-    results = step_kernel_phases(torch, dev, calls, draw)
-    sync_free_phase(torch, calls)
+    seconds = {}
+
+    def timed(name, phase, *phase_args):
+        t = time.perf_counter()
+        out = phase(*phase_args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+    launches, step, calls = timed("step", step_phase, torch, dev)
+    results = timed("step kernels", step_kernel_phases, torch, dev, calls,
+                    draw)
+    timed("sync-free", sync_free_phase, torch, calls)
     del calls
-    results.update(raw_and_profiling_kernel_phases(torch, dev, draw))
+    results.update(timed("verification and profiling kernels",
+                         raw_and_profiling_kernel_phases, torch, dev, draw))
     if args.profile:
-        profile_phase(torch, step)
-    paths = {"step": launches, "verify": verify_path(torch),
-             "profiling": profiling_path(torch)}
+        timed("profile", profile_phase, torch, step)
+    paths = {"step": launches, "verify": timed("verify", verify_path, torch),
+             "profiling": timed("profiling", profiling_path, torch)}
     for path in ("verify", "profiling"):
         print(f"  kernel launches in the {path} path: {paths[path]}")
         require_launched(paths[path], path)
-    paths["rats"] = rats_phase(torch, step, args.profile)
-    chou_phase(torch, dev, args.profile)
-    paths["rrtmgp"] = rrtmgp_phase(torch, step, args.profile)
-    paths["rrtmgp_native"] = rrtmgp_native_phase(torch, step, args.profile)
-    paths["driver"] = driver_phase(torch, step, args.profile)
+    paths["rats"] = timed("rats", rats_phase, torch, step, args.profile)
+    timed("chou", chou_phase, torch, dev, args.profile)
+    paths["rrtmgp"] = timed("rrtmgp", rrtmgp_phase, torch, step,
+                            args.profile)
+    paths["rrtmgp_native"] = timed("rrtmgp_native", rrtmgp_native_phase,
+                                   torch, step, args.profile)
+    paths["driver"] = timed("driver", driver_phase, torch, step,
+                            args.profile)
+    timed("satsim", satsim_phase, torch, dev, args.profile)
+    paths["parallel"] = timed("parallel", parallel_phase, torch, step)
+    print(f"phase seconds: {json.dumps(seconds)}")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "geosradiation_gridcomp_tpu"))
     if loaded:

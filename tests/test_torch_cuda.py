@@ -26,9 +26,16 @@ refresh + update on the card against the same functions on the CPU
 run restarted from it bitwise equal to the uninterrupted run. RRTMGP: the
 facade refresh launches K3, K4 and K5 once each and nothing else, its
 states against plain=True at the step's gates; the native engine on the
-card launches no kernel and is within 5e-5 of the CPU.
+card launches no kernel and is within 5e-5 of the CPU. The column
+sharding: the refresh over column_mesh() and over two shards on the one
+card bitwise equal to the unsharded one, K1-K6 launched; StagedFeed's
+round trip through pinned memory and a side stream. The satellite
+simulators: cosp_simulator on the card against the CPU (integers exact,
+fill values in place, counts exact, floats <= 5e-5, no kernel), and the
+radar's point blocks bitwise equal to one unblocked call.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,13 +72,19 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
     NGS_SW, taumol_sw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw_cuda import \
     taumol_sw_fast
-from geosradiation_gridcomp_tpu_torch.ops import mcica
+from geosradiation_gridcomp_tpu_torch.ops import mcica, threefry
 from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
 from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
     gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
 from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
     mcica_optics_lw, mcica_optics_lw_plain, mcica_optics_sw,
     mcica_optics_sw_plain, mcica_subcols_raw, mcica_subcols_raw_plain)
+from geosradiation_gridcomp_tpu_torch.parallel.distributed import (
+    StagedFeed, run_steps_overlapped)
+from geosradiation_gridcomp_tpu_torch.parallel.sharding import (
+    column_mesh, run_sharded, shard_columns)
+from geosradiation_gridcomp_tpu_torch.satsim import (SatsimInputs,
+                                                     cosp_simulator, radar)
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
 pytestmark = pytest.mark.gpu
@@ -669,3 +682,133 @@ def test_checkpoint_onto_the_card_restarts_bitwise(dev, tmp_path):
             for k in b[group]:
                 assert torch.equal(a[group][k], b[group][k]), (group, k)
         assert torch.equal(a["dtdt"], b["dtdt"])
+
+
+def test_staged_feed_round_trip_on_the_card(dev):
+    """put copies the host batch into pinned memory and starts its copy
+    on a side stream; get hands it to the current stream."""
+    feed = StagedFeed()
+    x = {"a": np.arange(4096.0, dtype=np.float32).reshape(1024, 4),
+         "b": (torch.arange(1024, dtype=torch.int32),)}
+    got = feed.put(x).get()
+    assert got["a"].device.type == "cuda"
+    assert torch.equal(got["a"].cpu(), torch.from_numpy(x["a"]))
+    assert torch.equal(got["b"][0].cpu(), x["b"][0])
+    with pytest.raises(RuntimeError, match="before put"):
+        feed.get()
+    batches = [{"a": np.full((64, 3), float(i), np.float32)}
+               for i in range(5)]
+    outs = run_steps_overlapped(lambda b: b["a"] * 2.0, batches)
+    assert [float(o.sum()) for o in outs] == [i * 384.0 for i in range(5)]
+
+
+@pytest.mark.parametrize("nshard", [1, 2])
+def test_sharded_refresh_equals_unsharded_on_the_card(dev, nshard):
+    """The refresh through shard_columns + run_sharded over column_mesh()
+    (nshard 1) or two shards on the one card, bitwise equal to the
+    unsharded refresh at 64 x 72; K1-K6 launch on the sharded path."""
+    inp = example_inputs(64, NLEV, device=dev)
+    cfg = RadiationConfig()
+    mods = dict(sw=swm.RRTMGSW.from_reference_tables(dev),
+                lw=lwm.RRTMGLW.from_reference_tables(dev))
+
+    def refresh(x):
+        return step.radiation_refresh(x, DOY, 12.0, config=cfg, ict=69,
+                                      icb=71, **mods)
+    want = refresh(inp)
+    LAUNCHES.clear()
+    got = run_sharded(refresh, shard_columns(column_mesh() * nshard, inp))
+    assert set(LAUNCHES) == {"mcica_optics_lw", "mcica_optics_sw",
+                             "taumol_lw", "rtrnmc", "taumol_sw", "spcvmc"}
+    for a, b in zip(got, want):
+        for f in b._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _cosp_scene(device):
+    """tests/test_satsim_cosp.py's scene (8 points x 40 levels: a liquid
+    deck at 750 hPa with rain below, an ice deck at 300 hPa), numpy."""
+    npoints, nlev = 8, 40
+    a = np.linspace(0.02, 1.0, nlev + 1) ** 1.3
+    ple = np.tile(1e5 * a, (npoints, 1)).astype(np.float32)
+    ple[:, 0] = 100.0
+    play = 0.5 * (ple[:, 1:] + ple[:, :-1])
+    t = np.maximum(292.0 * (play / play[:, -1:]) ** 0.22,
+                   205.0).astype(np.float32)
+    zle = (-7500.0 * np.log(np.maximum(ple, 1.0) / ple[:, -1:])
+           ).astype(np.float32)
+    qv = (0.012 * (play / play[:, -1:]) ** 3).astype(np.float32)
+    z2 = np.zeros((npoints, nlev), np.float32)
+    fcld, ql, qi, qr = z2.copy(), z2.copy(), z2.copy(), z2.copy()
+    k_liq = int(np.argmin(abs(play[0] - 75000.0)))
+    k_ice = int(np.argmin(abs(play[0] - 30000.0)))
+    fcld[:, k_liq], ql[:, k_liq] = 0.6, 1.5e-4
+    fcld[:, k_ice], qi[:, k_ice] = 0.3, 2e-5
+    qr[:, k_liq:] = 2e-5
+
+    def c(v):
+        return np.full((npoints, nlev), v, np.float32)
+    arrays = SatsimInputs(
+        ple=ple, zle=zle, t=t, qv=qv, fcld=fcld, qi=qi, ql=ql, qr=qr, qs=z2,
+        qg=z2, ri=c(30e-6), rl=c(12e-6), rr=c(300e-6), rs=c(100e-6),
+        rg=c(150e-6), ts=np.full(npoints, 292.0, np.float32),
+        mcosz=np.full(npoints, 0.6, np.float32),
+        frland=np.zeros(npoints, np.float32))
+    return SatsimInputs(*(torch.as_tensor(x, device=device) for x in arrays))
+
+
+def _leaves(out, prefix=""):
+    for k, v in out.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def test_cosp_on_the_card_matches_the_cpu(dev):
+    """cosp_simulator on the card against the CPU, key 11: frac_out and
+    the MODIS phases exact, fill values in the same places, counts
+    exact, the other floats <= 5e-5 relmax (meantaucld compared as the
+    mean albedo it is a steep function of); no kernel launched."""
+    LAUNCHES.clear()
+    card = cosp_simulator(threefry.key(11, device=dev), _cosp_scene(dev))
+    assert not LAUNCHES
+    cpu = dict(_leaves(cosp_simulator(threefry.key(11, device="cpu"),
+                                      _cosp_scene("cpu"))))
+    fills = torch.tensor([-1.0e30, -999.0, -999.0e-6, -1.0e20])
+    for name, a in _leaves(card):
+        a, b = a.cpu(), cpu[name]
+        if not b.is_floating_point():
+            assert torch.equal(a, b), name
+            continue
+        fa = torch.isin(a, fills) | (a.abs() >= 1e29)
+        fb = torch.isin(b, fills) | (b.abs() >= 1e29)
+        assert torch.equal(fa, fb), name
+        a, b = a[~fb], b[~fb]
+        if name.endswith("meantaucld"):
+            a, b = [x.double() ** 0.895 / (x.double() ** 0.895 + 6.82)
+                    for x in (a, b)]
+        if b.numel():
+            assert relmax(a, b) <= 5e-5, name
+
+
+def test_quickbeam_blocks_on_the_card(dev, monkeypatch):
+    """The radar's DSD planes in blocks of 3 points (8 points, 50
+    subcolumns, 40 levels, every class present) equal the unblocked call
+    bit for bit on the card."""
+    gen = torch.Generator(dev).manual_seed(0)
+    shape = (9, 8, 50, 40)
+    z = torch.linspace(16.0, 0.3, 40, device=dev).expand(8, 40)
+    p = 1000.0 * torch.exp(-z / 7.5)
+    tc = 15.0 - 6.5 * z
+    rh = torch.full_like(p, 60.0)
+    hm = torch.where(torch.rand(shape, device=dev, generator=gen) < 0.2,
+                     torch.rand(shape, device=dev, generator=gen), 0.0)
+    re = 300.0 * torch.rand(shape, device=dev, generator=gen)
+    plane = 50 * 40 * radar.ND * 4
+    monkeypatch.setattr(radar, "PLANE_BYTES", 8 * plane)
+    whole = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
+    monkeypatch.setattr(radar, "PLANE_BYTES", 3 * plane)
+    parts = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
+    for k in whole:
+        assert torch.equal(parts[k], whole[k]), k

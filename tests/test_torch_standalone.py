@@ -40,13 +40,15 @@ from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "geosradiation_gridcomp_tpu_torch"
 # the entry modules: the step and its driver, the driver infrastructure
-# and RATS, the Chou-Suarez and RRTMGP schemes, the verification suite and
+# and RATS, the Chou-Suarez and RRTMGP schemes, the column sharding and
+# staged feed, the satellite simulators, the verification suite and
 # every module under tools/profiling
 ENTRY_MODULES = (
     "driver.step", "driver.radiation", "driver.diagnostics", "driver.clock",
     "driver.validate", "driver.checkpoint", "driver.solar_cycle",
     "ops.twostream", "ops.chou_optics", "models.chou_sw", "models.chou_lw",
-    "models.rrtmgp.scheme", "tools.verify") + tuple(
+    "models.rrtmgp.scheme", "parallel.sharding", "parallel.distributed",
+    "satsim", "satsim.cosp", "satsim.radar", "tools.verify") + tuple(
     f"tools.profiling.{m.name}" for m in pkgutil.iter_modules(
         [os.path.join(ROOT, PKG, "tools", "profiling")]))
 
