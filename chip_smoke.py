@@ -42,10 +42,20 @@ nvcc per source side by side, then:
 3. kernel phases of the verification and profiling kernels at the sizes
    their paths give them, each against its plain twin on the same inputs,
    with both times and the bound: K7 at 512 x 72 and P1 on [1024, 72, 140]
-   exactly equal; P2's gather_rows and gather_lanes at the profiling
-   tool's 8192 x 72 points exactly equal, gather_rows beside the library
-   call tab[idx]; P3's full variant equal to K3 bit for bit and every
-   variant within relmax 5e-4 of its twin in every band, at 1024 x 72;
+   exactly equal; P2's gather_rows exactly equal in every case of its
+   contract (gather_cuda.ROWS_CASES: ragged N, ng 14 and 5, a table off
+   16 B, clamped indices, a 5000-row table, 1100 columns, the refresh's
+   LW cloud tables), printing the template instance each ran; at the
+   refresh's LW cloud-table gathers (absice3, absliq1 at 8192 x 72
+   indices, kernel_ab.lw_cloud_gathers) beside tab[index]; P2's
+   gather_rows and gather_lanes at the profiling tool's 8192 x 72 points
+   exactly equal, gather_rows timed with each output kept alive for 4
+   calls (kernel_ab.rotating: the writes then exceed the 50 MB L2) and,
+   for comparison, dropped at once, beside the library calls tab[idx] and
+   index_select (library_ms: the faster); P3's full variant equal to K3
+   bit for bit and every variant within relmax 5e-4 of its twin in every
+   band, at 1024 x 72. Every kernel's device time (torch.profiler,
+   device_ms) beside its CUDA-event time;
 4. verify path: the verification suite's entry point
    (tools/verify.py --quick, 512 x 72), every gate passing; K7 must
    launch there;
@@ -385,9 +395,12 @@ def step_kernel_phases(torch, dev, calls, draw):
     def timed(name, fn, plain, args, kw, err, bnd):
         results[name] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: fn(*args, **kw), 20),
+            device_ms=kernel_device_ms(torch, name,
+                                       lambda: fn(*args, **kw)),
             plain_ms=time_ms(torch, lambda: plain(*args, **kw), 3),
             bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
-        print(f"  {results[name]['ms']:.4f} ms (plain "
+        print(f"  {results[name]['ms']:.4f} ms, device "
+              f"{results[name]['device_ms']:.4f} ms (plain "
               f"{results[name]['plain_ms']:.2f} ms), bound "
               f"{bnd[0]:.4f} ms by {bnd[1]}")
 
@@ -492,6 +505,72 @@ def sync_free_phase(torch, calls):
             raise AssertionError(f"{name}: {res}")
 
 
+def kernel_device_ms(torch, name, fn):
+    """Device time (ms) of kernel `name`'s CUDA function per call of fn
+    (torch.profiler over 5 calls)."""
+    from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import \
+        device_ms
+    return device_ms(torch, fn, SOURCES[name][3])[0]
+
+
+def p2_rows_phase(torch, dev, gen, timed, exact):
+    """P2's gather_rows: every case of its contract (ROWS_CASES) exactly
+    equal to the twin, with the template instance each ran; the refresh's
+    LW cloud-table gathers beside tab[index]; then the timed run at the
+    gather tool's 8192 x NLEV points, each call's output kept alive for
+    LIVE calls (and, for comparison, dropped at once)."""
+    from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
+        ROWS_CASES, gather_rows, gather_rows_plain, rows_vec)
+    from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import (
+        LIVE, host_ms, lw_cloud_gathers, rotating)
+
+    print("P2 gather_rows, the cases of its contract:")
+    for case, (n, rows, ng, lo, hi, off) in ROWS_CASES.items():
+        flat = torch.randn(rows * ng + off, device=dev, generator=gen)
+        tab = flat[off:].view(rows, ng)
+        idx = torch.randint(lo, hi, (n,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        out = gather_rows(idx, tab)
+        print(f"  {case}: {n} points, {rows} x {ng} table, indices "
+              f"[{lo}, {hi}), instance float{rows_vec(tab, out)}")
+        exact(f"gather_rows {case}", out, gather_rows_plain(idx, tab))
+
+    print(f"P2 gather_rows at the refresh's LW cloud-table gathers "
+          f"({NCOL_SLICE} x {NLEV} indices, outputs rotated over {LIVE}):")
+    for name, (tab, index) in lw_cloud_gathers(torch, dev).items():
+        idx = index.reshape(-1).int()
+        out = gather_rows(idx, tab)
+        exact(f"gather_rows {name}", out, tab[index.reshape(-1)])
+        k = time_ms(torch, rotating(lambda: gather_rows(idx, tab)), 20)
+        lib = time_ms(torch, rotating(lambda: tab[index]), 20)
+        print(f"  {name} [{tab.shape[0]} x {tab.shape[1]}]: gather_rows "
+              f"{k:.4f} ms (float{rows_vec(tab, out)}), tab[index] "
+              f"{lib:.4f} ms, {lib / k:.1f}x")
+
+    n, rows = 8192 * NLEV, 585
+    tab = torch.randn(rows, 16, device=dev, generator=gen)
+    idx = torch.randint(0, rows, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    out = gather_rows(idx, tab)
+    print(f"P2 gather_rows at {n} points, {rows} x 16 table, instance "
+          f"float{rows_vec(tab, out)}:")
+    run = lambda: gather_rows(idx, tab)
+    cached = time_ms(torch, run, 20)
+    # the library: the faster of PyTorch's two calls for tab[idx]
+    libs = {"tab[idx]": lambda: tab[idx],
+            "index_select": lambda: torch.index_select(tab, 0, idx)}
+    lib_ms = {k: time_ms(torch, rotating(f), 20) for k, f in libs.items()}
+    host = host_ms(torch, rotating(run), 20, 3)
+    print(f"  outputs dropped at once (cached): {cached:.4f} ms; the "
+          f"host's time to enqueue a call {host:.4f} ms; library "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in lib_ms.items())
+          + " (rotated)")
+    timed("gather_rows", rotating(run), lambda: gather_rows_plain(idx, tab),
+          exact("gather_rows", out, gather_rows_plain(idx, tab)),
+          bound(nbytes(idx, tab, out)), n_plain=20,
+          library_ms=min(lib_ms.values()))
+
+
 def raw_and_profiling_kernel_phases(torch, dev, draw):
     """K7, P1, P2 and P3 against their plain twins at the sizes their
     paths give them: K7 at the verification suite's --quick 512 x NLEV,
@@ -508,7 +587,7 @@ def raw_and_profiling_kernel_phases(torch, dev, draw):
     from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import (ffill,
                                                                  ffill_plain)
     from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
-        gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
+        gather_lanes, gather_lanes_plain)
     from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
         mcica_subcols_raw, mcica_subcols_raw_plain)
     from geosradiation_gridcomp_tpu_torch.scene import example_inputs
@@ -518,13 +597,17 @@ def raw_and_profiling_kernel_phases(torch, dev, draw):
     ncol = NCOL_KERNEL
     results = {}
 
-    def timed(name, fn, plain, err, bnd, n_plain=3, library=None):
-        results[name] = dict(
+    def timed(name, fn, plain, err, bnd, n_plain=3, library_ms=None):
+        r = results[name] = dict(
             max_abs_err=err, ms=time_ms(torch, fn, 20),
+            device_ms=kernel_device_ms(torch, name, fn),
             plain_ms=time_ms(torch, plain, n_plain), bound_ms=bnd[0],
-            bound_by=bnd[1],
-            library_ms=None if library is None else time_ms(torch, library,
-                                                            20))
+            bound_by=bnd[1], library_ms=library_ms)
+        print(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.2f} ms), bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]}: {100 * bnd[0] / r['ms']:.0f} % of the card ms, "
+              f"{100 * bnd[0] / max(r['device_ms'], 1e-9):.0f} % of the "
+              f"device ms")
 
     def exact(name, a, b):
         gate(f"{name} mismatches", float((a != b).sum()), 0)
@@ -556,20 +639,13 @@ def raw_and_profiling_kernel_phases(torch, dev, draw):
           exact("ffill", out, ffill_plain(v, keep)),
           bound(nbytes(v, keep, out), fp_ops=v.numel()))
 
+    p2_rows_phase(torch, dev, gen, timed, exact)
     n, rows = 8192 * NLEV, 585
     tab = torch.randn(rows, 16, device=dev, generator=gen)
     tabt = torch.nn.functional.pad(tab.T, (0, 640 - rows)).contiguous()
     idx = torch.randint(0, rows, (n,), device=dev, generator=gen,
                         dtype=torch.int32)
     idx2d = idx.reshape(-1, 128)
-    print(f"P2 gather_rows, gather_lanes at {n} points, {rows} x 16 table:")
-    out = gather_rows(idx, tab)
-    # the library call: PyTorch's advanced indexing, tab[idx]
-    timed("gather_rows", lambda: gather_rows(idx, tab),
-          lambda: gather_rows_plain(idx, tab),
-          exact("gather_rows", out, gather_rows_plain(idx, tab)),
-          bound(nbytes(idx, tab, out)), n_plain=20,
-          library=lambda: tab[idx])
     out = gather_lanes(idx2d, tabt)
     timed("gather_lanes", lambda: gather_lanes(idx2d, tabt),
           lambda: gather_lanes_plain(idx2d, tabt),
@@ -1901,37 +1977,48 @@ def off_kernel_path_calls(run):
 _CSRC = "geosradiation_gridcomp_tpu_torch/csrc/"
 _REF = "geosradiation_gridcomp_tpu/"
 # kernel -> (source, the TPU kernel it replaces, the path that must launch
-# it: step, verify or profiling)
+# it: step, verify or profiling, its CUDA function's name)
 SOURCES = {
     "mcica_optics_lw": (_CSRC + "mcica_lw.cu",
-                        _REF + "ops/mcica_pallas.py:367", "step"),
+                        _REF + "ops/mcica_pallas.py:367", "step",
+                        "mcica_lw_kernel"),
     "mcica_optics_sw": (_CSRC + "mcica_sw.cu",
-                        _REF + "ops/mcica_pallas.py:588", "step"),
+                        _REF + "ops/mcica_pallas.py:588", "step",
+                        "mcica_sw_kernel"),
     "taumol_lw": (_CSRC + "taumol_lw.cu",
-                  _REF + "models/rrtmg/taumol_lw_pallas.py:457", "step"),
+                  _REF + "models/rrtmg/taumol_lw_pallas.py:457", "step",
+                  "taumol_lw_kernel"),
     "rtrnmc": (_CSRC + "rtrnmc.cu",
-               _REF + "models/rrtmg/rtrnmc_pallas.py:239", "step"),
+               _REF + "models/rrtmg/rtrnmc_pallas.py:239", "step",
+               "rtrnmc_kernel"),
     "taumol_sw": (_CSRC + "taumol_sw.cu",
-                  _REF + "models/rrtmg/taumol_sw_pallas.py:246", "step"),
+                  _REF + "models/rrtmg/taumol_sw_pallas.py:246", "step",
+                  "taumol_sw_kernel"),
     "spcvmc": (_CSRC + "spcvmc.cu",
-               _REF + "models/rrtmg/spcvmc_pallas.py:454", "step"),
+               _REF + "models/rrtmg/spcvmc_pallas.py:454", "step",
+               "spcvmc_kernel"),
     "mcica_subcols_raw": (_CSRC + "mcica_raw.cu",
-                          _REF + "ops/mcica_pallas.py:483", "verify"),
+                          _REF + "ops/mcica_pallas.py:483", "verify",
+                          "mcica_raw_kernel"),
     "ffill": (_CSRC + "ffill.cu",
-              "tools/profiling/fused_mcica_check.py:56", "profiling"),
+              "tools/profiling/fused_mcica_check.py:56", "profiling",
+              "ffill_kernel"),
     "gather_rows": (_CSRC + "gather_micro.cu",
-                    "tools/profiling/gather_micro.py:63", "profiling"),
+                    "tools/profiling/gather_micro.py:63", "profiling",
+                    "gather_rows_kernel"),
     "gather_lanes": (_CSRC + "gather_micro.cu",
-                     "tools/profiling/gather_micro.py:96", "profiling"),
+                     "tools/profiling/gather_micro.py:96", "profiling",
+                     "gather_lanes_kernel"),
+    # P3 runs K3's templated body, taumol_lw.cuh
     "taumol_lw_bisect": (_CSRC + "taumol_lw_bisect.cu",
                          "tools/profiling/taumol_lw_bisect.py:58",
-                         "profiling"),
+                         "profiling", "taumol_lw_kernel"),
 }
 
 
 def require_launched(launches, path):
     """Raise unless every kernel of the path launched in its run."""
-    for name, (_, _, p) in SOURCES.items():
+    for name, (_, _, p, _) in SOURCES.items():
         if p == path and launches.get(name, 0) < 1:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{path} path")
@@ -2006,7 +2093,7 @@ def main():
         raise AssertionError(f"the port loaded {loaded[:5]}")
 
     kernels = []
-    for name, (source, replaces, path) in SOURCES.items():
+    for name, (source, replaces, path, _) in SOURCES.items():
         r = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2016,8 +2103,9 @@ def main():
             launches_by_path={p: n[name] for p, n in paths.items()
                               if n.get(name)},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,9 +102,11 @@ def library():
     return ctypes.CDLL(build())
 
 
+@functools.lru_cache(maxsize=None)
 def entry(lib, name, nptr, nint, nfloat=0):
     """C entry point `name` of lib taking nptr pointers, nint ints, nfloat
-    floats and the stream, returning a cudaError_t as int."""
+    floats and the stream, returning a cudaError_t as int (set up once per
+    library and name: the wrappers call this on every launch)."""
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
                    + [ctypes.c_float] * nfloat + [ctypes.c_void_p])

@@ -9,6 +9,8 @@ small table at N = ncol x nlay indices. Only the profiling tool
 tools/profiling/gather_micro.py calls them.
 """
 
+import ctypes
+
 import torch
 
 from ..kernels import build
@@ -16,11 +18,27 @@ from ..kernels import build
 LANES = 128
 BLOCK_ROWS = 64    # index rows per output block of gather_lanes
 
+# The cases of gather_rows' contract that the tests and chip_smoke.py hold
+# against the twin: name -> (points, table rows, ng, lowest index, highest
+# index + 1, the table's offset in floats from an aligned allocation).
+ROWS_CASES = {
+    "tool": (8192, 585, 16, 0, 585, 0),        # the tool's table, float4
+    "ragged": (8191, 585, 16, 0, 585, 0),      # a part-full last block
+    "ng14": (8192, 585, 14, 0, 585, 0),        # the SW band count, float2
+    "ng5": (4099, 585, 5, 0, 585, 0),          # an odd width, float
+    "unaligned": (8192, 585, 16, 0, 585, 1),   # a table off 16 B, float
+    "clamped": (8192, 585, 16, -700, 1300, 0),  # indices outside the table
+    "large_table": (8192, 5000, 16, 0, 5000, 0),  # 320 KB, beyond an L1
+    "wide": (1000, 50, 1100, 0, 50, 0),        # 275 float4 a row: q loops
+    "absliq1": (8192, 58, 16, 0, 58, 0),       # the refresh's LW cloud
+    "absice3": (8192, 46, 16, 0, 46, 0),       # tables (cldprmc_lw.py)
+}
+
 
 def gather_rows_plain(idx, tab):
-    """Plain twin of gather_rows: tab[idx]. idx [N] int32, tab [rows, ng]
-    float32 -> [N, ng]."""
-    return tab[idx.long()]
+    """Plain twin of gather_rows: tab[idx] with idx clamped to the table.
+    idx [N] int32, tab [rows, ng] float32 -> [N, ng]."""
+    return tab[idx.long().clamp(0, tab.shape[0] - 1)]
 
 
 def gather_lanes_plain(idx2d, tabT):
@@ -47,6 +65,15 @@ def launch_rows(lib, idx, tab):
     return out
 
 
+def rows_vec(tab, out, lib=None):
+    """The floats a thread of gather_rows moves at once for these tensors:
+    4, 2 or 1, the kernel's template instance (by ng and alignment)."""
+    fn = (lib or build.library()).gather_rows_vec
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(tab.data_ptr(), out.data_ptr(), tab.shape[1])
+
+
 def launch_lanes(lib, idx2d, tabT):
     """Allocate the output and launch gather_lanes from lib."""
     ng, width = tabT.shape
@@ -68,10 +95,11 @@ def _require(name, idx, tab):
 
 
 def gather_rows(idx, tab):
-    """P2, rows: tab[idx] with the table read through the read-only path.
+    """P2, rows: tab[idx], indices clamped to the table; any N, rows and
+    ng. Each thread stores a vector of rows_vec floats (float4 where ng is
+    a multiple of 4), the table read through the read-only path.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel.
-    Indices must lie in [0, rows) (the kernel clamps them to the table).
     """
     if tab.device.type == "cpu":
         return gather_rows_plain(idx, tab)

@@ -11,10 +11,10 @@ at N = ncol x nlay points. At the reference's sizes (N = 8192 x 72,
 times, per call: the plain formulations tab[idx] and index_select, a
 one-hot float32 matmul (TF32 off; a plain timing only) and the two P2
 kernels of ops/gather_cuda.py with their twins: gather_rows (tab[idx]
-through the read-only path) and gather_lanes (the reference's transposed
-lane gather, the table resident in shared memory). Prints ms, Mpts/s and
-the output's GB/s; raises if a kernel differs from its twin or without a
-CUDA device.
+with float4 streaming stores, the table through the read-only path) and
+gather_lanes (the reference's transposed lane gather, the table resident
+in shared memory). Prints ms, Mpts/s and the output's GB/s; raises if a
+kernel differs from its twin or without a CUDA device.
 """
 
 import argparse

@@ -1,8 +1,9 @@
 """Time the step kernels (K1-K6) of one checkout on the refresh's own
-inputs, for an A/B of two checkouts on one card.
+inputs, or P2's gather_rows (--p2), for an A/B of two checkouts on one
+card.
 
     python geosradiation_gridcomp_tpu_torch/tools/profiling/kernel_ab.py \
-        [--tree PATH] [--label NAME] [--rounds 5] [--k 20]
+        [--tree PATH] [--label NAME] [--rounds 5] [--k 20] [--p2]
 
 Run as a file, not with -m: --tree names the root of the checkout whose
 package `geosradiation_gridcomp_tpu_torch` is timed (default: the checkout
@@ -34,6 +35,22 @@ stack; one whose kernels take play, rei and rel runs the kernel alone):
 the median of --rounds x --k refreshes each timed on the host clock
 between two synchronisations, and `device_ms`, `launches` and the `top`
 device kernels (name, ms, launches) per refresh (torch.profiler over 5).
+
+With --p2 nothing of that runs: `gather_rows` is timed at the gather
+tool's 8192 x 72 points on a 585 x 16 table (seed 0) and at the
+refresh's LW cloud-table gathers (`lw_cloud_gathers`: absice3 and
+absliq1 at rows index - 1 and index of [8192, 72] indices, as
+band_abs_coeffs_lw forms them on scene.example_inputs). Each gives `ms`,
+CUDA events around calls that keep their last LIVE outputs alive
+(`rotating`: the writes of consecutive calls then exceed the 50 MB L2),
+`ms_cached` (outputs dropped at once, so the allocator hands back the
+same block), `kernel_ms` and `other_device_ms` (torch.profiler, rotated
+calls), `host_ms` (the host's time to enqueue a call), the
+vector width of the instance that ran (`vec`; null where the checkout's
+wrapper does not say), whether it equals the plain twin exactly, and the
+same rotated time of `tab[idx]` and of `torch.index_select(tab, 0, idx)`
+(int64 indices, as the refresh gathers), with the device time and the
+top device kernels of `tab[idx]` (torch.profiler).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -145,6 +162,23 @@ def median_ms(torch, fn, k, rounds):
     return statistics.median(times)
 
 
+def host_ms(torch, fn, k, rounds):
+    """Median host time per call of fn when the host does not wait for the
+    card (k calls between two host-clock reads, after a synchronize): the
+    cost of enqueuing it, which bounds back-to-back calls from below."""
+    import time
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / k)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def sync_free(torch, run):
     """True if run() makes no call that synchronises the stream, else the
     error torch raised."""
@@ -219,6 +253,91 @@ def profile_per_call(torch, run, n=5, top=0):
                        e.count / n] for e in rows[:top]],)
 
 
+LIVE = 4   # outputs a rotated timing keeps alive
+
+
+def rotating(fn, live=LIVE):
+    """fn as a callable that keeps its last `live` outputs alive, so that
+    each call writes to memory the L2 no longer holds."""
+    ring = [None] * live
+    calls = [0]
+
+    def run():
+        ring[calls[0] % live] = fn()
+        calls[0] += 1
+    return run
+
+
+def lw_cloud_gathers(torch, dev):
+    """The refresh's LW table-row gathers: name -> (table, int64 index
+    [NCOL, NLEV]) for the rows index - 1 and index of absice3 and absliq1,
+    recorded from band_abs_coeffs_lw on scene.example_inputs' radii (the
+    refresh passes inp.ri and inp.rl to it unchanged)."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+    inp = example_inputs(NCOL, NLEV, seed=SEED, device=dev)
+    tables = cldprmc_lw.lw_cloud_tables(dev)
+    seen = []
+    interp = cldprmc_lw._interp_rows
+
+    def record(tab, index, fint):
+        seen.append((tab, index))
+        return interp(tab, index, fint)
+    cldprmc_lw._interp_rows = record
+    try:
+        cldprmc_lw.band_abs_coeffs_lw(inp.ri, inp.rl, tables)
+    finally:
+        cldprmc_lw._interp_rows = interp
+    out = {}
+    for name, (tab, index) in zip(("absice3", "absliq1"), seen):
+        assert tab is tables[name]
+        out[f"{name} index-1"] = (tab, index - 1)
+        out[f"{name} index"] = (tab, index)
+    return out
+
+
+def p2_case(torch, gather_cuda, tab, idx64, k, rounds):
+    """gather_rows on tab at idx64 (int64, any shape): exact against the
+    twin, its rotated and cached CUDA-event ms, its kernel's device ms
+    (and the rest's) and vector width, and the library calls' rotated
+    ms."""
+    idx = idx64.reshape(-1).int()
+    flat = idx64.reshape(-1)
+    run = lambda: gather_cuda.gather_rows(idx, tab)
+    out = run()
+    vec = getattr(gather_cuda, "rows_vec", None)
+    res = dict(points=idx.numel(), table=list(tab.shape),
+               vec=vec(tab, out) if vec else None,
+               exact=bool(torch.equal(out, tab[flat])),
+               ms=median_ms(torch, rotating(run), k, rounds),
+               ms_cached=median_ms(torch, run, k, rounds))
+    res["kernel_ms"], res["other_device_ms"] = device_ms(
+        torch, rotating(run), "gather_rows_kernel")
+    res["host_ms"] = host_ms(torch, rotating(run), k, rounds)
+    res["tab_idx_ms"] = median_ms(torch, rotating(lambda: tab[flat]), k,
+                                  rounds)
+    (res["tab_idx_device_ms"], _,
+     res["tab_idx_kernels"]) = profile_per_call(
+        torch, rotating(lambda: tab[flat]), top=2)
+    res["index_select_ms"] = median_ms(
+        torch, rotating(lambda: torch.index_select(tab, 0, flat)), k, rounds)
+    return res
+
+
+def p2_main(torch, dev, args):
+    """--p2: gather_rows at the tool's shape and at the refresh's LW
+    cloud-table gathers."""
+    from geosradiation_gridcomp_tpu_torch.ops import gather_cuda
+    gen = torch.Generator(dev).manual_seed(SEED)
+    tab = torch.randn(585, 16, device=dev, generator=gen)
+    idx = torch.randint(0, 585, (NCOL * NLEV,), device=dev, generator=gen)
+    out = {"tool 585x16": p2_case(torch, gather_cuda, tab, idx, args.k,
+                                  args.rounds)}
+    for name, (t, i) in lw_cloud_gathers(torch, dev).items():
+        out[name] = p2_case(torch, gather_cuda, t, i, args.k, args.rounds)
+    return out
+
+
 def wall_ms(torch, run, k, rounds):
     """Median host-clock time of run() between two synchronisations, over
     k x rounds runs after a warm-up, ms."""
@@ -241,6 +360,8 @@ def main(argv=None):
     parser.add_argument("--label", default="")
     parser.add_argument("--rounds", type=int, default=5)
     parser.add_argument("--k", type=int, default=20)
+    parser.add_argument("--p2", action="store_true",
+                        help="time P2's gather_rows only")
     args = parser.parse_args(argv)
     # import the package from --tree, not this file's directory
     sys.path[:] = [os.path.abspath(args.tree)] + [
@@ -263,6 +384,10 @@ def main(argv=None):
     print(smi.splitlines()[0])
     build.library()
     dev = torch.device("cuda", 0)
+    if args.p2:
+        print(json.dumps(dict(label=args.label, card=smi.splitlines()[0],
+                              gather_rows=p2_main(torch, dev, args))))
+        return
     inp = example_inputs(NCOL, NLEV, seed=SEED, device=dev)
     cfg = RadiationConfig()
     ple0 = inp.ple[0].cpu().numpy()

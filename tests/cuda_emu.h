@@ -2,7 +2,9 @@
 // tests/test_torch_kernels_emulated.py can compile csrc/*.cu with g++ and
 // run them on the CPU. Each CUDA thread is a std::thread; blocks run one
 // after another; __syncthreads is a block-wide std::barrier and a warp
-// shuffle goes through a per-warp exchange array and barrier.
+// shuffle goes through a per-warp exchange array and barrier. A block may
+// be two-dimensional (threadIdx.x runs fastest, and warps are cut from the
+// linear thread index as on the card).
 //
 // Conventions the kernel sources keep for this to work (the test rewrites
 // the two source forms below before compiling):
@@ -43,6 +45,9 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
+struct float2 {
+    float x, y;
+};
 struct float4 {
     float x, y, z, w;
 };
@@ -62,11 +67,13 @@ namespace emu {
 inline std::barrier<>* block_bar = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
 inline float xchg[1024];
+inline unsigned linear() { return threadIdx.x + threadIdx.y * blockDim.x; }
+inline unsigned nthreads() { return blockDim.x * blockDim.y; }
 }  // namespace emu
 
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
 inline float __shfl_down_sync(unsigned, float v, int d) {
-    const int t = threadIdx.x, lane = t % 32;
+    const int t = emu::linear(), lane = t % 32;
     auto& bar = *emu::warp_bars[t / 32];
     emu::xchg[t] = v;
     bar.arrive_and_wait();
@@ -75,22 +82,22 @@ inline float __shfl_down_sync(unsigned, float v, int d) {
     return r;
 }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
-    const int t = threadIdx.x, lane = t % 32;
+    const int t = emu::linear(), lane = t % 32;
     auto& bar = *emu::warp_bars[t / 32];
     emu::xchg[t] = v;
     bar.arrive_and_wait();
     const unsigned src = t - lane + (lane ^ m);
-    const float r = src < blockDim.x ? emu::xchg[src] : v;
+    const float r = src < emu::nthreads() ? emu::xchg[src] : v;
     bar.arrive_and_wait();
     return r;
 }
 inline int __any_sync(unsigned, int pred) {
-    const int t = threadIdx.x, lane = t % 32;
+    const int t = emu::linear(), lane = t % 32;
     auto& bar = *emu::warp_bars[t / 32];
     emu::xchg[t] = pred ? 1.0f : 0.0f;
     bar.arrive_and_wait();
     int any = 0;
-    for (unsigned i = t - lane; i < t - lane + 32 && i < blockDim.x; ++i)
+    for (unsigned i = t - lane; i < t - lane + 32 && i < emu::nthreads(); ++i)
         any |= emu::xchg[i] != 0.0f;
     bar.arrive_and_wait();
     return any;
@@ -129,6 +136,8 @@ inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
+template <typename T>
+inline void __stcs(T* p, T v) { *p = v; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
@@ -144,7 +153,7 @@ struct EmuLaunch {
     void operator()(A... args) {
         gridDim = grid;
         blockDim = block;
-        const unsigned nt = block.x;
+        const unsigned nt = block.x * block.y;
         for (unsigned by = 0; by < grid.y; ++by)
             for (unsigned bx = 0; bx < grid.x; ++bx) {
                 std::barrier<> bar(nt);
@@ -156,7 +165,7 @@ struct EmuLaunch {
                 std::vector<std::thread> threads;
                 for (unsigned t = 0; t < nt; ++t)
                     threads.emplace_back([&, t] {
-                        threadIdx = dim3(t);
+                        threadIdx = dim3(t % block.x, t / block.x);
                         blockIdx = dim3(bx, by);
                         kernel(args...);
                     });

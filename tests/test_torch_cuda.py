@@ -15,7 +15,8 @@ K4 (also at other shapes, and equal to itself over two runs) and K6 <=
 reference's kernel-parity gate, tools/verify_tpu.py:115-128); the LW
 refresh <= 5e-5 (the LW end-to-end gate); the SW state of the combined
 step <= 5e-4 (the SW end-to-end gate, tools/verify_tpu.py:279-281). K7,
-P1 and both P2 kernels exact; P3's full variant equal to K3 bit for bit,
+P1 and both P2 kernels exact, gather_rows in every case of its contract
+(gather_cuda.ROWS_CASES); P3's full variant equal to K3 bit for bit,
 every variant <= 5e-4 per band (K3's gate). K1, K2, K4, K5 and K6's
 wrappers run under torch.cuda.set_sync_debug_mode("error"): none
 synchronises the stream. RATS with the kernels (K1, K3 and K4 launched
@@ -75,7 +76,8 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw_cuda import \
 from geosradiation_gridcomp_tpu_torch.ops import mcica, threefry
 from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
 from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
-    gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
+    ROWS_CASES, gather_lanes, gather_lanes_plain, gather_rows,
+    gather_rows_plain, rows_vec)
 from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import (
     mcica_optics_lw, mcica_optics_lw_plain, mcica_optics_sw,
     mcica_optics_sw_plain, mcica_subcols_raw, mcica_subcols_raw_plain)
@@ -539,6 +541,22 @@ def test_p2_equals_plain(dev):
     idx2d = idx.reshape(64, 128)
     assert torch.equal(gather_lanes(idx2d, tabt),
                        gather_lanes_plain(idx2d, tabt))
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_CASES))
+def test_p2_rows_contract_equals_plain(dev, name):
+    """gather_rows in each case of its contract, through its template
+    instance: float4, float2 (ng 14) or float (ng 5, a table off 16 B)."""
+    n, rows, ng, lo, hi, off = ROWS_CASES[name]
+    gen = torch.Generator(dev).manual_seed(6)
+    tab = torch.randn(rows * ng + off, device=dev, generator=gen)[off:] \
+        .view(rows, ng)
+    idx = torch.randint(lo, hi, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    out = gather_rows(idx, tab)
+    assert torch.equal(out, gather_rows_plain(idx, tab))
+    assert rows_vec(tab, out) == {"ng14": 2, "ng5": 1,
+                                  "unaligned": 1}.get(name, 4)
 
 
 def test_p3_full_equals_k3(case):

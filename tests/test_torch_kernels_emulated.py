@@ -450,19 +450,39 @@ def test_p1_emulated_equals_plain(lib):
                        ffill_cuda.ffill_plain(v, keep))
 
 
-@pytest.mark.parametrize("kind", ["rows", "lanes"])
+def _rows_case(name, seed=8):
+    """gather_rows' inputs for a case of gather_cuda.ROWS_CASES."""
+    n, rows, ng, lo, hi, off = gather_cuda.ROWS_CASES[name]
+    rng = np.random.default_rng(seed)
+    flat = torch.as_tensor(rng.standard_normal(rows * ng + off)
+                           .astype(np.float32))
+    tab = flat[off:].view(rows, ng)
+    idx = torch.as_tensor(rng.integers(lo, hi, n).astype(np.int32))
+    return idx, tab
+
+
+@pytest.mark.parametrize("kind", ["rows", "lanes"] + [
+    f"rows_{c}" for c in gather_cuda.ROWS_CASES if c != "tool"])
 def test_p2_emulated_equals_plain(lib, kind):
-    rng = np.random.default_rng(8)
-    tab = torch.as_tensor(rng.standard_normal((585, 16)).astype(np.float32))
-    idx = torch.as_tensor(rng.integers(0, 585, 64 * 128).astype(np.int32))
-    if kind == "rows":
-        a = gather_cuda.launch_rows(lib, idx, tab)
-        b = gather_cuda.gather_rows_plain(idx, tab)
-    else:
+    """gather_lanes, and gather_rows in every case of its contract
+    (ROWS_CASES; "rows" is the tool's), each through its template
+    instance: float4, float2 (ng 14) or float (ng 5, a table off 16 B)."""
+    if kind == "lanes":
+        idx, tab = _rows_case("tool")
         tabt = torch.nn.functional.pad(tab.T, (0, 640 - 585)).contiguous()
         a = gather_cuda.launch_lanes(lib, idx.reshape(64, 128), tabt)
         b = gather_cuda.gather_lanes_plain(idx.reshape(64, 128), tabt)
-    assert torch.equal(a, b)
+        assert torch.equal(a, b)
+        return
+    name = "tool" if kind == "rows" else kind[len("rows_"):]
+    idx, tab = _rows_case(name)
+    a = gather_cuda.launch_rows(lib, idx, tab)
+    b = gather_cuda.gather_rows_plain(idx, tab)
+    assert a.shape == b.shape and torch.equal(a, b)
+    assert gather_cuda.rows_vec(tab, a, lib) == {
+        "ng14": 2, "ng5": 1, "unaligned": 1}.get(name, 4)
+    if name == "clamped":
+        assert int(idx.min()) < 0 and int(idx.max()) >= tab.shape[0]
 
 
 def test_p3_full_emulated_equals_k3(lib, case):

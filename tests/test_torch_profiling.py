@@ -4,7 +4,8 @@ P1 (ops/ffill_cuda.py): equal, bit for bit, to the JAX oracle's
 _correlate on the transposed layout, and to the TPU kernel's own fill
 (ops/mcica_pallas.py:_ffill) run in a pallas_call in interpret mode on
 the [B, nlay, nsub] layout it documents. P2 (ops/gather_cuda.py): equal
-to numpy's take. P3 (models/rrtmg/taumol_lw.py with parts): with every
+to numpy's take (gather_rows' twin clamps its indices to the table). P3
+(models/rrtmg/taumol_lw.py with parts): with every
 part it is taumol_lw bit for bit; each variant zeroes exactly its terms
 (no Planck fractions without "planck", taug untouched by "planck", and
 taug elementwise at most the full value, since every dropped term is
@@ -26,7 +27,8 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw_cuda import \
     taumol_lw_bisect
 from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
 from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
-    gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain)
+    ROWS_CASES, gather_lanes, gather_lanes_plain, gather_rows,
+    gather_rows_plain)
 from geosradiation_gridcomp_tpu_torch.tools.profiling import (
     fused_mcica_check, gather_micro, kernel_ab, kernel_resources,
     taumol_lw_bisect as bisect_tool)
@@ -82,6 +84,20 @@ def test_p2_twins_equal_numpy_take():
     np.testing.assert_array_equal(
         gather_rows_plain(torch.as_tensor(idx), torch.as_tensor(tab))
         .numpy(), np.take(tab, idx, axis=0))
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_CASES))
+def test_p2_rows_twin_equals_numpy_take_of_clipped(name):
+    """gather_rows' twin in each case of the kernel's contract: numpy's
+    take at the indices clipped to the table."""
+    n, rows, ng, lo, hi, off = ROWS_CASES[name]
+    rng = np.random.default_rng(4)
+    tab = rng.standard_normal(rows * ng + off).astype(np.float32)[off:] \
+        .reshape(rows, ng)
+    idx = rng.integers(lo, hi, n).astype(np.int32)
+    got = gather_rows(torch.as_tensor(idx), torch.as_tensor(tab))
+    np.testing.assert_array_equal(
+        got.numpy(), np.take(tab, np.clip(idx, 0, rows - 1), axis=0))
 
 
 @pytest.fixture(scope="module")
@@ -246,3 +262,50 @@ def test_kernel_ab_mcica_stage_feeds_the_kernel_as_the_scheme_did():
     assert torch.equal(a[7], torch.stack(planes))
     kernel_ab.mcica_stage(torch, calls, "lw")()
     assert seen[-1] == ((("keys", "play", (0, 1, 2, 3)), 1, 2), {"y": 2})
+
+
+def test_kernel_ab_rotating_keeps_the_last_outputs_alive():
+    """A rotated call holds its last `live` outputs and no older one, so
+    each call's output lands in a block the previous calls did not
+    write."""
+    import weakref
+    refs = []
+
+    def fn():
+        t = torch.zeros(4)
+        refs.append(weakref.ref(t))
+        return t
+    run = kernel_ab.rotating(fn, live=3)
+    for _ in range(7):
+        run()
+    assert [r() is not None for r in refs] == [False] * 4 + [True] * 3
+
+
+def test_kernel_ab_lw_cloud_gathers_are_the_refresh_rows(monkeypatch):
+    """The recorded gathers are the rows index - 1 and index of absice3
+    and absliq1 at the radii of scene.example_inputs, as
+    band_abs_coeffs_lw forms them (cldprmc_lw.py), and interpolating them
+    gives its coefficients; gather_rows of them equals tab[index]."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
+    from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+
+    monkeypatch.setattr(kernel_ab, "NCOL", 6)
+    got = kernel_ab.lw_cloud_gathers(torch, torch.device("cpu"))
+    assert list(got) == ["absice3 index-1", "absice3 index",
+                         "absliq1 index-1", "absliq1 index"]
+    inp = example_inputs(6, NLAY, seed=kernel_ab.SEED, device="cpu")
+    tables = cldprmc_lw.lw_cloud_tables("cpu")
+    want = cldprmc_lw.band_abs_coeffs_lw(inp.ri, inp.rl, tables)
+    for name, factor, coef in (
+            ("absice3", (inp.ri - 2.0) / 3.0, want[0]),
+            ("absliq1", inp.rl - 1.5, want[1])):
+        tab, hi = got[f"{name} index"]
+        _, lo = got[f"{name} index-1"]
+        assert torch.equal(tab, tables[name]) and tab.shape[1] == 16
+        index = torch.clamp(torch.floor(factor).long(), 1, tab.shape[0] - 1)
+        assert torch.equal(hi, index) and torch.equal(lo, index - 1)
+        fint = (factor - index.float())[..., None]
+        assert torch.equal(tab[lo] + fint * (tab[hi] - tab[lo]), coef)
+        for i in (lo, hi):
+            assert torch.equal(gather_rows(i.reshape(-1).int(), tab),
+                               tab[i.reshape(-1)])
