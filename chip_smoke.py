@@ -12,8 +12,18 @@ nvcc per source side by side, then:
 1. step phase at 8192 columns x 72 levels (the reference benchmark's
    workload, bench.py:190-228): radiation_refresh + radiation_update
    through their entry points on the realistic multi-deck scene, doy 172,
-   12 UTC, with sw_partition_bounds daylight packing; every kernel K1-K6
-   must launch, and the first call of each one's wrapper is recorded;
+   12 UTC, with sw_partition_bounds daylight packing. The entries are
+   captured (driver/compiled.py, the counterpart of the reference's
+   jax.jit): the first call warms up, captures a CUDA graph per static
+   key and replays it, and every kernel K1-K6 must launch exactly once
+   (LAUNCHES counts each replay's recorded launches); the capture's own
+   time and the graph pool's size are printed; a second call replays,
+   counts K1-K6 once again and returns outputs bitwise equal to the
+   first's and sharing no storage with them; the first call of each
+   kernel's wrapper is recorded through the eager bodies
+   (radiation_refresh_eager, radiation_update_eager), and the replays
+   must be bitwise equal to the eager bodies at doy 172 and at 172.001,
+   which no graph was captured at;
    every IrradState field and LW export must agree with the plain path on
    the same card to relmax <= 5e-5, every SolarState field and SW export
    to relmax <= 5e-4 with at most 0.5 % of columns beyond 5e-5
@@ -21,8 +31,10 @@ nvcc per source side by side, then:
    form (tests/test_accuracy.py:142-152): the flux-divergence error in
    every layer and the relative rate where dp > 100 Pa, each within the
    bound the flux gates imply (heating_rate_gates); fluxes must be
-   physical; the wall time of the refresh with the kernels and with the
-   plain twins;
+   physical; in one call, plain, eager, captured, captured, eager,
+   plain: the refresh's wall time (host clock) and CUDA-event time on
+   each route, the update's likewise, and the peak device memory of an
+   eager and a captured refresh beside the graph pool;
 2. kernel phases of K1-K6 at the main path's shapes, on the inputs the
    refresh gave them: each kernel against its plain PyTorch twin on the
    same inputs on the card (K1, K2: cloudy masks and clear counts
@@ -35,9 +47,9 @@ nvcc per source side by side, then:
    the work is operations over the FP32 peak, and for the threefry draws
    of K1, K2 and K7 (with K1 and K2's subkeys) the SASS instructions of
    one draw as nvcc compiles it in this run, over the rates of the SM's
-   pipes; then K1, K2, K4, K5 and K6's wrappers once more on those inputs
-   under
-   torch.cuda.set_sync_debug_mode("error"), where any call that
+   pipes; then K1, K2, K4, K5 and K6's wrappers once more on those inputs,
+   and the whole refresh + update replayed and through the eager bodies,
+   under torch.cuda.set_sync_debug_mode("error"), where any call that
    synchronises the stream (a copy from host memory) raises;
 3. kernel phases of the verification and profiling kernels at the sizes
    their paths give them, each against its plain twin on the same inputs,
@@ -78,8 +90,9 @@ nvcc per source side by side, then:
    flux export within relmax 5e-5 of the same functions on the CPU on the
    first 256 columns, the heating rates in the reference's form
    (heating_rate_gates at those flux gates); SW net / TOA insolation in
-   [0, 1] and OLR in 120-340 W/m^2; the wall time (median of 3) and the
-   peak device memory;
+   [0, 1] and OLR in 120-340 W/m^2; where the refresh, which stays on
+   the eager body, first synchronises the stream (reported); the wall
+   time (median of 3) and the peak device memory;
 8. rrtmgp phase: radiation_refresh + radiation_update with the RRTMGP SW
    and LW schemes through the RRTMG-reduced facade at 8192 x 72: K3, K4
    and K5 must launch exactly once each and nothing else (K5 on all
@@ -90,7 +103,8 @@ nvcc per source side by side, then:
    export within 5e-4 with at most 0.5 % of columns beyond 5e-5, the
    heating rates in the reference's form; SW net / TOA insolation in
    [0, 1] and OLR in 150-350 W/m^2; the clear-sky difference from the
-   RRTMG step (flcn, flc), the wall time (median of 3) and CUDA-event
+   RRTMG step (flcn, flc), where the refresh (eager, as Chou's) first
+   synchronises the stream, the wall time (median of 3) and CUDA-event
    time of the refresh, the plain refresh's wall, the McICA draws'
    time (_gen_max_ran_mask, SW and LW) and the peak device memory;
 9. rrtmgp_native phase: the same through the native engine, on a
@@ -105,7 +119,8 @@ nvcc per source side by side, then:
    memory;
 10. driver phase: a RadiationClock (30 min heartbeat, hourly refresh) for
    4 heartbeats at 8192 x 72 with the kernels: validate_inputs and
-   radiation_refresh + rats_refresh on the alarm, radiation_update +
+   radiation_refresh (captured) + rats_refresh on the alarm,
+   radiation_update (captured) +
    rats_update every heartbeat, check_finite on every new state and
    export; then the same run stopped after heartbeat 2, checkpointed
    (build/driver_checkpoint.npz) and restarted from
@@ -134,8 +149,10 @@ nvcc per source side by side, then:
    loop: outputs bitwise equal, columns/s of both and their ratio, and a
    torch.profiler trace of the overlapped run (build/staged_trace.json):
    the streams of the host-to-device copies from pinned memory and of the
-   kernels, and the share of the copies' time that overlapped a kernel
-   of another stream.
+   kernels, the count of other host-to-device copies, and the share of
+   the pinned copies' time that overlapped a kernel of another stream.
+   Every refresh here goes through the captured entry: each new shape or
+   packing bound captures its own graph.
 
 Then it checks that neither jax nor any module of the reference package
 geosradiation_gridcomp_tpu was loaded.
@@ -143,8 +160,10 @@ geosradiation_gridcomp_tpu was loaded.
     python3 chip_smoke.py --profile
 
 adds, after the step phase, where the time of the full-width refresh
-goes: its wall time over 30 runs, the device time of each CUDA kernel,
-the launches per refresh and the device's idle share (torch.profiler),
+goes, on the eager and on the captured route: its wall time over 30
+runs and CUDA-event time, the device time of each CUDA kernel, the
+launches per refresh and the device's idle share (torch.profiler), the
+same of the update, whether the profiler names K1-K6 inside a replay,
 a check that the refresh calls neither ops.mcica.subcolumn_keys nor
 band_optics_coeffs_sw (K1 and K2 derive the subkeys, K2 the SW band
 optics, on the card), and the solar_refresh and irrad_refresh stages
@@ -488,21 +507,54 @@ def step_kernel_phases(torch, dev, calls, draw):
     return results
 
 
-def sync_free_phase(torch, calls):
-    """K1, K2, K4, K5 and K6's wrappers on the refresh's inputs under
-    set_sync_debug_mode("error"): a wrapper that synchronises the stream
-    (a copy from host memory, a read of a device value) fails."""
+def sync_free_phase(torch, calls, step):
+    """K1, K2, K4, K5 and K6's wrappers on the refresh's inputs, then the
+    whole refresh + update, replayed and through the eager bodies, under
+    set_sync_debug_mode("error"): a call that synchronises the stream (a
+    copy from host memory, a read of a device value) fails."""
     from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import \
         sync_free
 
-    print("sync-free wrappers, set_sync_debug_mode('error'):")
-    for name in ("mcica_optics_lw", "mcica_optics_sw", "rtrnmc",
-                 "taumol_sw", "spcvmc"):
-        fn, args, kw = calls[name]
-        res = sync_free(torch, lambda: fn(*args, **kw))
+    def step_run(eager):
+        states = step["refresh"](eager=eager)
+        return step["update"](states, eager=eager)
+
+    print("sync-free, set_sync_debug_mode('error'):")
+    runs = [(name, lambda fn=fn, a=args, kw=kw: fn(*a, **kw))
+            for name, (fn, args, kw) in ((n, calls[n]) for n in (
+                "mcica_optics_lw", "mcica_optics_sw", "rtrnmc", "taumol_sw",
+                "spcvmc"))]
+    runs += [("captured refresh + update", lambda: step_run(False)),
+             ("eager refresh + update", lambda: step_run(True))]
+    for name, run in runs:
+        res = sync_free(torch, run)
         print(f"  {name:36s} {'PASS' if res is True else res}")
         if res is not True:
             raise AssertionError(f"{name}: {res}")
+
+
+def first_sync(torch, run):
+    """Where run() first synchronises the stream: the innermost frame of
+    the port in the traceback of the error set_sync_debug_mode("error")
+    raises there, or None when it never does."""
+    import traceback
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+        return None
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "geosradiation_gridcomp_tpu_torch" in f.filename]
+        if not frames:
+            return str(e).splitlines()[0]
+        f = frames[-1]
+        return (f"{f.filename.split('geosradiation_gridcomp_tpu_torch/')[-1]}"
+                f":{f.lineno} {f.line}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
 
 
 def kernel_device_ms(torch, name, fn):
@@ -710,16 +762,32 @@ def profiling_path(torch):
     return dict(LAUNCHES)
 
 
+def pool_bytes(torch, dev):
+    """Bytes the caching allocator holds for the captured graphs' shared
+    memory pool on dev (driver/compiled.py:graph_pool)."""
+    from geosradiation_gridcomp_tpu_torch.driver.compiled import graph_pool
+    pool = tuple(graph_pool(dev)[0])
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
 def step_phase(torch, dev):
     """radiation_refresh + radiation_update at full width through their
-    entry points, as bench.py drives the reference; returns the launches,
-    the step's set-up and the recorded first call of each step kernel."""
+    captured entries, as bench.py drives the reference's jitted ones:
+    the first call captures, and K1-K6 launch once per refresh; the
+    replays bitwise equal to the eager bodies at the captured doy and at
+    another; the step's gates against plain=True; eager and captured
+    times in one call. Returns the launches, the step's set-up and the
+    recorded first call of each step kernel (through the eager body)."""
     from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
     from geosradiation_gridcomp_tpu_torch.driver.step import (
-        radiation_refresh, radiation_update, sw_partition_bounds)
+        radiation_refresh, radiation_refresh_eager, radiation_update,
+        radiation_update_eager, sw_partition_bounds)
     from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import RRTMGLW
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.sw import RRTMGSW
+    from geosradiation_gridcomp_tpu_torch.parallel.sharding import \
+        tree_leaves
     from geosradiation_gridcomp_tpu_torch.scene import example_inputs
     from geosradiation_gridcomp_tpu_torch.tools.profiling.kernel_ab import \
         recording
@@ -739,27 +807,74 @@ def step_phase(torch, dev):
     mods = dict(sw=RRTMGSW.from_reference_tables(dev),
                 lw=RRTMGLW.from_reference_tables(dev))
 
-    def refresh(plain):
-        return radiation_refresh(inp, DOY, UTC, config=cfg, ict=ict, icb=icb,
-                                 sw_nlit=nlit, sw_ncld=ncld, plain=plain,
-                                 **mods)
+    def refresh(plain=False, eager=False, doy=DOY):
+        entry = radiation_refresh_eager if eager else radiation_refresh
+        return entry(inp, doy, UTC, config=cfg, ict=ict, icb=icb,
+                     sw_nlit=nlit, sw_ncld=ncld, plain=plain, **mods)
 
-    def run(plain):
-        sol, irr = refresh(plain)
-        upd = radiation_update(sol, irr, inp.tsinst + 0.5, inp.lons,
-                               inp.lats, inp.ple, DOY, UTC + 0.25, config=cfg)
-        return sol, irr, upd
+    def update(states, eager=False, doy=DOY):
+        entry = radiation_update_eager if eager else radiation_update
+        return entry(*states, inp.tsinst + 0.5, inp.lons, inp.lats, inp.ple,
+                     doy, UTC + 0.25, config=cfg)
+
+    def run(plain=False, eager=False, doy=DOY):
+        sol, irr = refresh(plain, eager, doy)
+        return sol, irr, update((sol, irr), eager, doy)
+
+    def unequal(a, b):
+        return sum(not torch.equal(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
     print(f"step: radiation_refresh + radiation_update at {ncol} x {NLEV}, "
           f"ict={ict} icb={icb}, sw_nlit={nlit} sw_ncld={ncld}:")
-    with recording() as calls:
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        sol, irr, upd = run(plain=False)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(dev)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    sol, irr = refresh()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    upd = update((sol, irr))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(LAUNCHES)
     print(f"  kernel launches in the main path: {launches}")
     require_launched(launches, "step")
+    gate("step kernels not launched exactly once",
+         sum(n != 1 for n in launches.values()), 0)
+    print(f"  first calls (warm-up + capture + replay): refresh "
+          f"{(t1 - t0) * 1e3:.1f} ms, update {(t2 - t1) * 1e3:.1f} ms; graph "
+          f"pool {pool_bytes(torch, dev) / 2**20:.1f} MiB, reserved "
+          f"{reserved / 2**20:.1f} -> "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB")
+    LAUNCHES.clear()
+    again = run()
+    torch.cuda.synchronize()
+    gate("replay: step kernels not counted exactly once",
+         sum(LAUNCHES.get(k, 0) != 1 for k, v in SOURCES.items()
+             if v[2] == "step") + len(set(LAUNCHES) - set(launches)), 0)
+    gate("replay vs first call: leaves not bitwise equal",
+         unequal(again, (sol, irr, upd)), 0)
+    gate("replay outputs sharing storage with the first call's",
+         len({t.untyped_storage().data_ptr() for t in tree_leaves(again)}
+             & {t.untyped_storage().data_ptr()
+                for t in tree_leaves((sol, irr, upd))}), 0)
+    del again
+    with recording() as calls:
+        eager = run(eager=True)
+    gate(f"captured vs eager at doy {DOY}: leaves not bitwise equal",
+         unequal((sol, irr, upd), eager), 0)
+    other = DOY + 0.001
+    got, want = run(doy=other), run(eager=True, doy=other)
+    gate(f"captured vs eager at doy {other}: leaves not bitwise equal",
+         unequal(got, want), 0)
+    moved = unequal(got, eager)
+    print(f"  {moved} of {len(tree_leaves(got))} leaves differ between doy "
+          f"{DOY} and {other} (the doy reaches the graph)")
+    if not moved:
+        raise AssertionError("the replay at another doy gave the captured "
+                             "doy's results")
+    del eager, got, want
     sol_p, irr_p, upd_p = run(plain=True)
     for f in irr._fields:
         gate(f"IrradState.{f} relmax", relmax(getattr(irr, f),
@@ -810,29 +925,65 @@ def step_phase(torch, dev):
     if not float(hr.abs().max()) < 50.0:
         raise AssertionError("heating rate beyond 50 K/day")
 
-    def wall(plain, n=5):
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            refresh(plain)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-
-    # plain, kernel, kernel, plain: compare within one call
-    torch.cuda.reset_peak_memory_stats()
-    t_plain = [wall(True)]
-    t_kern = [wall(False), wall(False)]
-    t_plain.append(wall(True))
-    tk, tp = min(t_kern), min(t_plain)
-    print(f"  radiation_refresh wall time (median of 5, better of 2 rounds):"
-          f" kernels {tk * 1e3:.2f} ms ({ncol / tk:.0f} columns/s), plain "
-          f"{tp * 1e3:.2f} ms ({ncol / tp:.0f} columns/s); rounds "
-          f"{t_kern} / {t_plain}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    # plain, eager, captured, captured, eager, plain: compare within one
+    # call; wall = host clock between two synchronisations (median of 5),
+    # CUDA events = back-to-back calls (mean of 10)
+    states = (sol, irr)
+    fns = {"plain": lambda: refresh(plain=True),
+           "eager": lambda: refresh(eager=True), "captured": refresh,
+           "eager update": lambda: update(states, eager=True),
+           "captured update": lambda: update(states)}
+    t = {k: [] for k in fns}
+    ev = {k: [] for k in fns}
+    for k in ("plain", "eager", "captured", "captured", "eager", "plain",
+              "eager update", "captured update", "captured update",
+              "eager update"):
+        t[k].append(statistics.median(walls(torch, fns[k], 5)))
+        if k != "plain":
+            ev[k].append(time_ms(torch, fns[k], 10))
+    peak = {}
+    for k in ("eager", "captured"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fns[k]()
+        torch.cuda.synchronize()
+        peak[k] = torch.cuda.max_memory_allocated() / 2**20
+    best = {k: min(v) for k, v in t.items()}
+    print(f"  radiation_refresh wall (median of 5, better of 2 rounds): "
+          f"captured {best['captured'] * 1e3:.3f} ms "
+          f"({ncol / best['captured']:.0f} columns/s), eager "
+          f"{best['eager'] * 1e3:.3f} ms ({ncol / best['eager']:.0f} "
+          f"columns/s), plain {best['plain'] * 1e3:.2f} ms; CUDA events "
+          f"(mean of 10) captured {ev['captured']}, eager {ev['eager']} ms; "
+          f"rounds captured {[round(x * 1e3, 3) for x in t['captured']]} / "
+          f"eager {[round(x * 1e3, 3) for x in t['eager']]} / plain "
+          f"{[round(x * 1e3, 1) for x in t['plain']]} ms")
+    print(f"  radiation_update wall (median of 5): captured "
+          f"{[round(x * 1e3, 3) for x in t['captured update']]}, eager "
+          f"{[round(x * 1e3, 3) for x in t['eager update']]} ms; CUDA events "
+          f"(mean of 10) captured {ev['captured update']}, eager "
+          f"{ev['eager update']} ms")
+    # what a capture costs in a warm process: a key not seen yet (the
+    # refresh without daylight packing), its first call beside that key's
+    # eager body and replays
+    def unpacked(entry):
+        return lambda: entry(inp, DOY, UTC, config=cfg, ict=ict, icb=icb,
+                             **mods)
+    first = walls(torch, unpacked(radiation_refresh), 1)[0]
+    later = {k: statistics.median(walls(torch, unpacked(entry), 5))
+             for k, entry in (("replays", radiation_refresh),
+                              ("eager", radiation_refresh_eager))}
+    print(f"  a new key in a warm process (no packing): first call "
+          f"(warm-up + capture + replay) {first * 1e3:.1f} ms, then "
+          f"replays {later['replays'] * 1e3:.3f} ms and the eager body "
+          f"{later['eager'] * 1e3:.3f} ms (medians of 5)")
+    print(f"  peak device memory of one refresh: eager {peak['eager']:.1f} "
+          f"MiB, captured {peak['captured']:.1f} MiB beside the graph pool's "
+          f"{pool_bytes(torch, dev) / 2**20:.1f} MiB (reserved "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB)")
     return launches, dict(inp=inp, cfg=cfg, ict=ict, icb=icb, nlit=nlit,
-                          ncld=ncld, mods=mods, refresh=refresh), calls
+                          ncld=ncld, mods=mods, refresh=refresh,
+                          update=update), calls
 
 
 def synthetic_kdist():
@@ -1061,6 +1212,8 @@ def chou_phase(torch, dev, profile=False):
                        inp.ple[:n].cpu(), upd_c["sw"]["fsw"],
                        upd_c["lw"]["flw"], 5e-5, 5e-5)
     check_physical(torch, sol, irr, upd, (120.0, 340.0))
+    print(f"  the refresh stays on the eager body; it first synchronises "
+          f"the stream at {first_sync(torch, lambda: run(inp))}")
     t = statistics.median(walls(torch, lambda: run(inp), 3))
     print(f"  refresh + update wall {t * 1e3:.1f} ms (median of 3, "
           f"{NCOL_SLICE / t:.0f} columns/s); peak device memory "
@@ -1177,6 +1330,8 @@ def rrtmgp_phase(torch, step, profile=False):
                        ref[2]["sw"]["fsw"], ref[2]["lw"]["flw"], 5e-4, 5e-5)
     check_physical(torch, sol, irr, upd, (150.0, 350.0))
     del ref
+    print(f"  the refresh stays on the eager body; it first synchronises "
+          f"the stream at {first_sync(torch, refresh)}")
 
     # the clear sky against the RRTMG step (reported); spcvmc floors mu0
     # at 1e-4, rte_sw at 1e-6, so grazing-sun columns are also shown apart
@@ -1808,10 +1963,10 @@ def parallel_phase(torch, step):
 
 def copy_overlap(torch, run, path):
     """torch.profiler trace of run(): on which streams the host-to-device
-    copies from pinned memory (the staged inputs; the refresh's own
-    copies, ROADMAP H3, come from pageable memory) and the kernels ran,
-    and how much of those copies' time overlapped a kernel of another
-    stream."""
+    copies from pinned memory (the staged inputs) and the kernels ran,
+    how many other host-to-device copies there were (the captured
+    refresh makes none), and how much of the pinned copies' time
+    overlapped a kernel of another stream."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1838,8 +1993,8 @@ def copy_overlap(torch, run, path):
                 last = e
     total = sum(e - s for s, e, _ in staged)
     print(f"  trace ({path}): {len(htod)} host-to-device copies, "
-          f"{len(htod) - len(staged)} of them the refresh's own from "
-          f"pageable memory, {len(staged)} from pinned memory "
+          f"{len(htod) - len(staged)} of them from pageable memory, "
+          f"{len(staged)} from pinned memory "
           f"({total / 1e3:.3f} ms) on "
           f"streams {sorted({c[2] for c in staged})}, kernels on streams "
           f"{sorted({k[2] for k in kernels})}; {overlap / 1e3:.3f} ms "
@@ -1891,6 +2046,7 @@ def device_profile(torch, label, fn, nprof, top=25):
     print(f"  device busy {busy / 1e3:.3f} of {span / 1e3:.3f} ms profiled "
           f"({100.0 * (1.0 - busy / max(span, 1)):.1f} % idle under the "
           f"profiler)")
+    return [r[2] for r in rows]
 
 
 def profile_phase(torch, step, nwall=30, nprof=5):
@@ -1902,27 +2058,32 @@ def profile_phase(torch, step, nwall=30, nprof=5):
         SEED_ORDER_SW
     from geosradiation_gridcomp_tpu_torch.ops import mcica
 
-    refresh = step["refresh"]
+    refresh, update = step["refresh"], step["update"]
     inp, cfg, nlit = step["inp"], step["cfg"], step["nlit"]
-    print(f"profile: radiation_refresh at {NCOL_SLICE} x {NLEV}:")
-    times = []
-    for _ in range(nwall):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refresh(False)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    q = statistics.quantiles(times, n=4)
-    print(f"  wall over {nwall}: median {statistics.median(times) * 1e3:.3f}"
-          f" ms, quartiles {q[0] * 1e3:.3f} / {q[2] * 1e3:.3f}, min "
-          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}")
-
-    device_profile(torch, "refresh", lambda: refresh(False), nprof)
+    states = refresh()
+    for route, eager in (("eager", True), ("captured", False)):
+        print(f"profile: {route} radiation_refresh at {NCOL_SLICE} x {NLEV}:")
+        times = walls(torch, lambda: refresh(eager=eager), nwall)
+        q = statistics.quantiles(times, n=4)
+        print(f"  wall over {nwall}: median "
+              f"{statistics.median(times) * 1e3:.3f} ms, quartiles "
+              f"{q[0] * 1e3:.3f} / {q[2] * 1e3:.3f}, min "
+              f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; CUDA "
+              f"events {time_ms(torch, lambda: refresh(eager=eager), 10):.3f}"
+              f" ms (mean of 10)")
+        names = device_profile(torch, f"{route} refresh",
+                               lambda: refresh(eager=eager), nprof)
+        device_profile(torch, f"{route} update",
+                       lambda: update(states, eager=eager), nprof, top=5)
+    missing = [k for k, v in SOURCES.items() if v[2] == "step"
+               and not any(v[3] in n for n in names)]
+    print(f"  step kernels the profiler names inside the replay: "
+          f"{'all six' if not missing else f'all but {missing}'}")
 
     # K1 and K2 derive the subkeys and K2 the SW band optics on the card:
     # the refresh calls neither subcolumn_keys nor band_optics_coeffs_sw
     # (the plain twins do)
-    found = off_kernel_path_calls(lambda: refresh(False))
+    found = off_kernel_path_calls(lambda: refresh(eager=True))
     print(f"  calls of the plain key and band-optics functions in a "
           f"refresh: {found}")
     if any(found.values()):
@@ -2065,7 +2226,7 @@ def main():
     launches, step, calls = timed("step", step_phase, torch, dev)
     results = timed("step kernels", step_kernel_phases, torch, dev, calls,
                     draw)
-    timed("sync-free", sync_free_phase, torch, calls)
+    timed("sync-free", sync_free_phase, torch, calls, step)
     del calls
     results.update(timed("verification and profiling kernels",
                          raw_and_profiling_kernel_phases, torch, dev, draw))

@@ -5,7 +5,8 @@ solar ephemeris (declination / equation-of-time Fourier fits, Spencer
 1971) and 4-point Gauss-Legendre means of max(cos zenith, 0) over an
 interval. Scalars (day of year, UTC hours) are taken to float32 tensors,
 so the arithmetic is the float32 sequence the reference's jitted step
-runs.
+runs: a Python float is filled into a scalar on the inputs' device (a
+kernel argument, not a copy from host memory), a tensor is used as it is.
 """
 
 import math
@@ -17,8 +18,13 @@ _GL4_X = np.array([-0.8611363116, -0.3399810436, 0.3399810436, 0.8611363116])
 _GL4_W = np.array([0.3478548451, 0.6521451549, 0.6521451549, 0.3478548451])
 
 
-def _f32(x, like):
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+def float32_scalar(x, like):
+    """x (a Python number or a 0-d tensor) as a float32 scalar on like's
+    device, rounded as torch.as_tensor rounds it; nothing is copied from
+    host memory unless x is a tensor on another device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=like.device)
 
 
 def declination_eqtime(doy_frac):
@@ -61,8 +67,8 @@ def mean_cos_zenith(lon, lat, doy_frac, utc_hours, interval_hours):
     Returns (mean_mu0, lit_fraction), each [ncol]; the reference's zenith
     over the lit part is mean_mu0 / lit_fraction.
     """
-    doy_frac = _f32(doy_frac, lon)
-    utc_hours = _f32(utc_hours, lon)
+    doy_frac = float32_scalar(doy_frac, lon)
+    utc_hours = float32_scalar(utc_hours, lon)
     half = 0.5 * interval_hours
     mid = utc_hours + half
     mu_acc = lit_acc = 0.0

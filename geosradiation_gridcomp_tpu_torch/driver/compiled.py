@@ -1,0 +1,246 @@
+"""The counterpart of jax.jit for the step's entry points: CUDA graphs.
+
+The reference wraps radiation_refresh and radiation_update in jax.jit
+with static arguments (geosradiation_gridcomp_tpu/driver/step.py:20-22,
+59): each static key is traced and compiled once, and every later call
+copies in its traced arguments and dispatches one program. Here
+`captured(body, static_argnames=...)` does the same on a card:
+
+- the key is the static arguments' values (`config` is a frozen
+  dataclass, as for jit) plus the structure of the traced ones: for each
+  tensor its shape, dtype and device, a scalar (a Python number or a 0-d
+  floating tensor: `doy`, `utc_hours`) as such, and where each None,
+  tuple or NamedTuple stands (`sw_aero`, `lw_aero`, the states);
+- the first call with a key allocates static input buffers (a scalar
+  becomes a 0-d float32 device tensor), copies the call's values in,
+  warms the body up on them on a side stream (which fills the
+  per-device caches of tables, sets kernel attributes and builds
+  modules) and captures it on them with torch.cuda.graph; every key of
+  a device shares one memory pool and one capture stream;
+- every call copies its traced tensors into the buffers and fills the
+  scalars on the current stream, replays the graph there and returns
+  clones of the static outputs: the clones keep jit's value semantics (a
+  state kept across heartbeats is not overwritten by the next replay)
+  and make the shared pool safe for sequential replays on one stream.
+
+A route function decides from the bound arguments whether a call takes
+the graph at all (CPU tensors and the plain twins run the body eagerly,
+as the caller asked) and may complete them (the refresh fills in its
+table modules). A capture that fails raises; nothing falls back to the
+eager body.
+
+kernels.build.LAUNCHES counts each kernel once per call on either route:
+the wrapper calls made during the warm-up and the capture are taken back
+out, and each replay adds what its capture recorded.
+"""
+
+import functools
+import inspect
+import numbers
+
+import torch
+
+from ..kernels.build import LAUNCHES
+from ..parallel.sharding import tree_map
+
+# the structure of a traced leaf
+TENSOR, SCALAR = "tensor", "scalar"
+
+
+def _is_scalar(x):
+    if isinstance(x, torch.Tensor):
+        return x.dim() == 0 and x.is_floating_point()
+    return isinstance(x, numbers.Real) and not isinstance(x, bool)
+
+
+def flatten(tree, leaves):
+    """The structure of a traced argument, appending its leaves (tensors
+    and scalars) to leaves: SCALAR, (TENSOR, shape, dtype, device), None,
+    or (container type, structures of the items)."""
+    if _is_scalar(tree):
+        leaves.append(tree)
+        return SCALAR
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return (TENSOR, tuple(tree.shape), tree.dtype, tree.device)
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(flatten(x, leaves) for x in tree))
+    raise TypeError(f"captured: cannot trace an argument of type "
+                    f"{type(tree).__name__}")
+
+
+def unflatten(structure, leaves):
+    """The traced argument of that structure on the leaves (an iterator)."""
+    if structure is None:
+        return None
+    if structure == SCALAR or structure[0] == TENSOR:
+        return next(leaves)
+    typ, items = structure
+    values = [unflatten(s, leaves) for s in items]
+    return typ(*values) if hasattr(typ, "_fields") else typ(values)
+
+
+def clone_tree(tree):
+    """A copy of every tensor of the tree, in a tree of the same form."""
+    return tree_map(lambda t: t.clone(), tree)
+
+
+class StaticIO:
+    """The static input buffers of one key and the copy-in / clone-out
+    around a replay.
+
+    traced: name -> value of each traced argument of the call that makes
+    the key; device: where the buffers live (every tensor of traced but
+    the scalars must lie there). Calling it with another call's traced
+    values copies them into the buffers on the current stream (fill_ for
+    a Python number), runs replay() and returns clones of what replay()
+    returns. `arguments` are the traced arguments on the buffers, which
+    the body is captured on.
+    """
+
+    def __init__(self, traced, device):
+        leaves = []
+        self.structures = {n: flatten(v, leaves) for n, v in traced.items()}
+        stray = {x.device for x in leaves if not _is_scalar(x)} - {device}
+        if stray:
+            raise ValueError(f"captured: the traced tensors lie on {device} "
+                             f"and {sorted(map(str, stray))}")
+        self.buffers = [
+            torch.zeros((), dtype=torch.float32, device=device)
+            if _is_scalar(x) else torch.empty(x.shape, dtype=x.dtype,
+                                              device=device)
+            for x in leaves]
+        it = iter(self.buffers)
+        self.arguments = {n: unflatten(s, it)
+                          for n, s in self.structures.items()}
+
+    def load(self, traced):
+        """Copy the traced values into the buffers."""
+        leaves = []
+        for name, value in traced.items():
+            flatten(value, leaves)
+        for buf, x in zip(self.buffers, leaves):
+            if isinstance(x, torch.Tensor):
+                buf.copy_(x)
+            else:
+                buf.fill_(float(x))
+
+    def __call__(self, traced, replay):
+        self.load(traced)
+        return clone_tree(replay())
+
+
+@functools.lru_cache(maxsize=None)
+def graph_pool(device):
+    """(memory pool handle, capture stream) shared by every graph captured
+    on device."""
+    return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+
+
+class _Graph:
+    """One captured key: its StaticIO, graph, static outputs and the
+    launches its capture recorded."""
+
+    def __init__(self, body, bound, io, device):
+        bound.arguments.update(io.arguments)
+        before = dict(LAUNCHES)
+        try:
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                body(*bound.args, **bound.kwargs)
+            current.wait_stream(side)
+            warm = dict(LAUNCHES)
+            pool, stream = graph_pool(device)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = body(*bound.args, **bound.kwargs)
+            self.launches = {k: n - warm.get(k, 0)
+                             for k, n in LAUNCHES.items()
+                             if n != warm.get(k, 0)}
+        finally:
+            LAUNCHES.clear()
+            LAUNCHES.update(before)
+        self.io = io
+
+    def replay(self):
+        self.graph.replay()
+        LAUNCHES.update(self.launches)
+        return self.out
+
+
+def _first_device(tree):
+    """The device of the first tensor (not 0-d) of a traced argument."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device if tree.dim() > 0 else None
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            device = _first_device(x)
+            if device is not None:
+                return device
+    return None
+
+
+def on_card(arguments, device):
+    """The default route: capture where the traced tensors lie on a card."""
+    return arguments if device is not None and device.type == "cuda" \
+        else None
+
+
+class Captured:
+    """body as a captured entry: see the module docstring.
+
+    route(arguments, device) gets the bound arguments (name -> value,
+    defaults applied) and the device of the traced tensors, and returns
+    None to run the body eagerly, or the arguments to capture and replay
+    with (it may fill some of the static ones in)."""
+
+    def __init__(self, body, static_argnames, route=on_card):
+        self.body = body
+        self.static_argnames = tuple(static_argnames)
+        self.route = route
+        self.signature = inspect.signature(body)
+        self.graphs = {}
+        functools.update_wrapper(self, body)
+
+    def traced(self, arguments):
+        return {n: v for n, v in arguments.items()
+                if n not in self.static_argnames}
+
+    def key(self, arguments):
+        """The cache key of a call's arguments (bound, defaults applied):
+        the static values and the traced arguments' structures."""
+        static = tuple((n, arguments[n]) for n in self.static_argnames)
+        leaves = []
+        return static, tuple((n, flatten(v, leaves))
+                             for n, v in self.traced(arguments).items())
+
+    def __call__(self, *args, **kwargs):
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        traced = self.traced(bound.arguments)
+        device = next((d for d in map(_first_device, traced.values())
+                       if d is not None), None)
+        arguments = self.route(dict(bound.arguments), device)
+        if arguments is None:
+            return self.body(*args, **kwargs)
+        key = self.key(arguments)
+        graph = self.graphs.get(key)
+        if graph is None:
+            io = StaticIO(traced, device)
+            io.load(traced)
+            bound.arguments.update(arguments)
+            with torch.cuda.device(device):
+                graph = _Graph(self.body, bound, io, device)
+            self.graphs[key] = graph
+        return graph.io(traced, graph.replay)
+
+
+def captured(body, static_argnames, route=on_card):
+    """body as an entry that captures one CUDA graph per static key and
+    replays it (the counterpart of jax.jit(body, static_argnames=...));
+    see the module docstring."""
+    return Captured(body, static_argnames, route)

@@ -9,6 +9,7 @@ Port of geosradiation_gridcomp_tpu/driver/diagnostics.py:
     exported and advanced between refreshes like the main fluxes.
 """
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -48,6 +49,23 @@ def invert_planck_for_t(b_wn, wn):
     return _ALT * wn / torch.log1p(_BIGC * wn ** 3 / b_wn)
 
 
+def _band_midpoints(wavenum1, wavenum2, device, dtype):
+    """Mid-point wavenumbers and widths [m^-1] of bands given in cm^-1,
+    as tensors on device."""
+    wn1 = np.asarray(wavenum1) * 100.0
+    wn2 = np.asarray(wavenum2) * 100.0
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t(0.5 * (wn1 + wn2)), t(wn2 - wn1)
+
+
+@functools.lru_cache(maxsize=None)
+def _rrtmg_band_midpoints(device, dtype):
+    """_band_midpoints of the RRTMG LW bands, copied from the host once per
+    device and dtype: a copy from host memory in every heartbeat's update
+    would synchronise the stream."""
+    return _band_midpoints(LW_WAVENUM1, LW_WAVENUM2, device, dtype)
+
+
 def band_brightness_temperature(olrb, wavenum1=None, wavenum2=None):
     """Brightness temperature per LW band from band OLR [W/m^2]: mean
     Planck radiance over the band inverted at the mid-point wavenumber.
@@ -55,11 +73,13 @@ def band_brightness_temperature(olrb, wavenum1=None, wavenum2=None):
 
     olrb: [..., nband]; returns the same shape [K].
     """
-    wn1 = (LW_WAVENUM1 if wavenum1 is None else np.asarray(wavenum1)) * 100.0
-    wn2 = (LW_WAVENUM2 if wavenum2 is None else np.asarray(wavenum2)) * 100.0
-    t = lambda a: torch.as_tensor(a, dtype=olrb.dtype, device=olrb.device)
-    wn_mid = t(0.5 * (wn1 + wn2))
-    dwn = t(wn2 - wn1)
+    if wavenum1 is None and wavenum2 is None:
+        wn_mid, dwn = _rrtmg_band_midpoints(olrb.device, olrb.dtype)
+    else:
+        wn_mid, dwn = _band_midpoints(
+            LW_WAVENUM1 if wavenum1 is None else wavenum1,
+            LW_WAVENUM2 if wavenum2 is None else wavenum2, olrb.device,
+            olrb.dtype)
     bmean = torch.clamp(olrb, min=1e-30) / (np.pi * dwn)
     tbr = invert_planck_for_t(bmean, wn_mid)
     return torch.where(olrb > 0.0, tbr, torch.full_like(tbr, UNDEF))

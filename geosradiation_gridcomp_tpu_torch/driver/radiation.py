@@ -24,7 +24,7 @@ from ..models.rrtmg.lw import (RRTMGLW, level_temperatures, mid_heights,
                                rrtmg_lw)
 from ..models.rrtmg.sw import RRTMGSW, rrtmg_sw
 from ..models.rrtmgp.scheme import rrtmgp_lw, rrtmgp_sw
-from .astronomy import earth_sun_factor
+from .astronomy import float32_scalar, earth_sun_factor
 from .diagnostics import UNDEF, band_brightness_temperature
 from .state import IrradState, SolarState
 
@@ -236,8 +236,7 @@ def solar_update(state: SolarState, cosz_now, doy_now,
 
     Returns dict of W/m^2 exports.
     """
-    doy_now = torch.as_tensor(doy_now, dtype=torch.float32,
-                              device=cosz_now.device)
+    doy_now = float32_scalar(doy_now, cosz_now)
     sln = (config.effective_scon() * earth_sun_factor(doy_now)
            * torch.clamp(cosz_now, min=0.0))
 

@@ -4,22 +4,46 @@ Port of geosradiation_gridcomp_tpu/driver/step.py: `radiation_refresh` is
 the full SW+LW refresh (the RunAlarm branch), `radiation_update` the cheap
 per-heartbeat export path; `lit_column_bound` and `sw_partition_bounds`
 compute the SW daylight-packing bounds on the host.
+
+The reference jits both entry points with static arguments. Here their
+bodies are the module functions `radiation_refresh_eager` and
+`radiation_update_eager` (the counterpart of a jitted function's
+`__wrapped__`), and `radiation_refresh` / `radiation_update` are those
+bodies as captured entries (driver/compiled.py): on a card each static
+key is captured once as a CUDA graph and every later call replays it.
+The refresh's static arguments are the reference's (config, ict, icb,
+sw_nlit, sw_ncld) plus the table modules sw and lw and plain; the
+update's is config. CPU tensors and plain=True run the body eagerly. The
+refresh is captured where both schemes are RRTMG: the Chou-Suarez and
+RRTMGP refreshes stay on the eager body, decided from config alone,
+because they copy from host memory on every call (their table lookups,
+and RRTMGP's McICA random stream is drawn on the host); the update is
+captured under every config.
 """
+
+import functools
 
 import numpy as np
 import torch
 
+from ..config import Scheme
+from ..models.rrtmg.lw import RRTMGLW
+from ..models.rrtmg.sw import RRTMGSW
 from .astronomy import mean_cos_zenith
+from .compiled import captured, on_card
 from .radiation import (AtmosInputs, heating_rates, irrad_refresh,
                         irrad_update, solar_refresh, solar_update,
                         surface_lw_linearization)
 
 
-def radiation_refresh(inp: AtmosInputs, doy, utc_hours, *, config, ict, icb,
-                      sw_aero=None, lw_aero=None, sw_nlit=None,
-                      sw_ncld=None, sw=None, lw=None, plain=False):
-    """Full SW+LW refresh. Returns (solar_state, irrad_state).
+def radiation_refresh_eager(inp: AtmosInputs, doy, utc_hours, *, config,
+                            ict, icb, sw_aero=None, lw_aero=None,
+                            sw_nlit=None, sw_ncld=None, sw=None, lw=None,
+                            plain=False):
+    """Full SW+LW refresh, run op by op. Returns (solar_state,
+    irrad_state).
 
+    doy, utc_hours: Python numbers or 0-d float32 tensors.
     sw_aero: optional (taua, ssaa, asya) per-SW-band aerosol optics
     [ncol, nlay, nband]. lw_aero: optional LW aerosol optics, a
     (taua, ssaa, asya) tuple for the Chou scheme (10 bands), or taua
@@ -49,9 +73,9 @@ def radiation_refresh(inp: AtmosInputs, doy, utc_hours, *, config, ict, icb,
     return sol, irr
 
 
-def radiation_update(solar_state, irrad_state, tsinst, lons, lats, ple,
-                     doy, utc_hours, *, config):
-    """Per-heartbeat exports + heating rates."""
+def radiation_update_eager(solar_state, irrad_state, tsinst, lons, lats, ple,
+                           doy, utc_hours, *, config):
+    """Per-heartbeat exports + heating rates, run op by op."""
     mu_now, _ = mean_cos_zenith(lons, lats, doy, utc_hours,
                                 config.run_dt / 3600.0)
     sw = solar_update(solar_state, mu_now, doy, config)
@@ -60,6 +84,45 @@ def radiation_update(solar_state, irrad_state, tsinst, lons, lats, ple,
     out = dict(sw=sw, lw=lw, dtdt=dtdt)
     out.update(surface_lw_linearization(irrad_state))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def reference_modules(device):
+    """RRTMG's SW and LW table modules on device, built once: the captured
+    refresh's counterpart of jit baking the tables into the executable."""
+    return (RRTMGSW.from_reference_tables(device),
+            RRTMGLW.from_reference_tables(device))
+
+
+def _refresh_route(arguments, device):
+    """The captured refresh's route: RRTMG SW and LW on a card, the
+    kernels (not plain), the table modules filled in when not given."""
+    config = arguments["config"]
+    if on_card(arguments, device) is None or arguments["plain"] \
+            or config.sw_scheme != Scheme.RRTMG \
+            or config.lw_scheme != Scheme.RRTMG:
+        return None
+    missing = [k for k in ("sw", "lw") if arguments[k] is None]
+    if missing:
+        tables = dict(zip(("sw", "lw"), reference_modules(device)))
+        arguments = {**arguments, **{k: tables[k] for k in missing}}
+    return arguments
+
+
+radiation_refresh = captured(
+    radiation_refresh_eager,
+    static_argnames=("config", "ict", "icb", "sw_nlit", "sw_ncld", "sw",
+                     "lw", "plain"),
+    route=_refresh_route)
+radiation_refresh.__doc__ = """Full SW+LW refresh (radiation_refresh_eager's
+arguments and results), as a CUDA graph captured once per static key on a
+card where both schemes are RRTMG; eagerly otherwise."""
+
+radiation_update = captured(radiation_update_eager,
+                            static_argnames=("config",))
+radiation_update.__doc__ = """Per-heartbeat exports + heating rates
+(radiation_update_eager's arguments and results), as a CUDA graph
+captured once per static key on a card; eagerly on the CPU."""
 
 
 def _up(n, bucket, ncol):

@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel launches per wrapper name. A wrapper adds one where it launches
-# its kernel and nowhere else.
+# its kernel and nowhere else; a replayed CUDA graph (driver/compiled.py)
+# adds the launches its capture recorded, and takes the wrapper calls of
+# its warm-up and capture back out.
 LAUNCHES = collections.Counter()
 
 

@@ -11,6 +11,8 @@ a dict with absice0 (2,), absice1 (2, 5), absice2/3/4 (n, 16) and
 absliq1 (58, 16).
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -24,6 +26,13 @@ NGB = np.repeat(np.arange(16), NG_LW)
 
 CLOUD_TABLE_KEYS = ("absice0", "absice1", "absice2", "absice3", "absice4",
                     "absliq1")
+
+
+@functools.lru_cache(maxsize=None)
+def _ice1_bands(device):
+    """_ICE1B on device, copied from the host once per device: a copy from
+    host memory in every call would synchronise the stream."""
+    return torch.as_tensor(_ICE1B, device=device)
 
 
 def lw_cloud_tables(device="cuda"):
@@ -51,7 +60,7 @@ def band_abs_coeffs_lw(reice, reliq, tables, iceflag=3, liqflag=1):
             .expand(reice.shape + (16,))
     elif iceflag == 1:
         a = tables["absice1"]
-        ice1b = torch.as_tensor(_ICE1B, device=reice.device)
+        ice1b = _ice1_bands(reice.device)
         absice = a[0][ice1b] + a[1][ice1b] \
             / torch.clamp(reice, min=1e-6)[..., None]
     else:

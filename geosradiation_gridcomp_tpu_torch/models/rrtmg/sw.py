@@ -10,6 +10,8 @@ tensors and its CUDA kernel for CUDA tensors.
 All inputs TOA-first. Water paths are IN-CLOUD values in g/m^2.
 """
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -32,6 +34,13 @@ from .taumol_sw_cuda import taumol_sw_fast
 SEED_ORDER_SW = (3, 2, 1, 0)
 # bands 10-13 (1-based) take the UV/vis albedos, the others the NIR ones
 _UVBAND = (np.arange(1, 15) >= 10) & (np.arange(1, 15) <= 13)
+
+
+@functools.lru_cache(maxsize=None)
+def uv_bands(device):
+    """_UVBAND on device, copied from the host once per device: a copy
+    from host memory in every call would synchronise the stream."""
+    return torch.as_tensor(_UVBAND, device=device)
 
 
 class RRTMGSW(nn.Module):
@@ -186,7 +195,7 @@ def rrtmg_sw(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
         coefs, sw.taumol_tables)
     sfluxzen = sfluxzen_only(coefs, sw.solar_sources(svw))
 
-    uv = torch.as_tensor(_UVBAND, device=cldf.device)
+    uv = uv_bands(cldf.device)
     albdir = torch.where(uv, albdir_uv[:, None], albdir_nir[:, None])
     albdif = torch.where(uv, albdif_uv[:, None], albdif_nir[:, None])
 

@@ -27,8 +27,15 @@ ZCW_N1 = 1000
 
 
 def correlation_length(am1, am2, am30, am4, doy, alat):
-    """Decorrelation length [m] (cloud_subcol_gen.F90:634-660)."""
-    doy = torch.as_tensor(doy, dtype=torch.float32, device=alat.device)
+    """Decorrelation length [m] (cloud_subcol_gen.F90:634-660).
+
+    doy: a Python number (filled into a float32 scalar on alat's device,
+    no copy from host memory) or a 0-d tensor."""
+    if isinstance(doy, torch.Tensor):
+        doy = doy.to(device=alat.device, dtype=torch.float32)
+    else:
+        doy = torch.full((), float(doy), dtype=torch.float32,
+                         device=alat.device)
     am3 = torch.where(doy > 181,
                       -4.0 * am30 / 365.0 * (doy - 272),
                       4.0 * am30 / 365.0 * (doy - 91))

@@ -14,15 +14,15 @@ compare within it.
 The inputs are those of one radiation_refresh at 8192 columns x 72
 levels on the scene of scene.example_inputs (seed 0), doy 172, 12 UTC,
 with bench.py's sw_partition_bounds packing: each step kernel's wrapper
-is recorded as the refresh calls it (`recording`, which chip_smoke.py
-uses too). Each of the six is then timed with CUDA events, the median
-of --rounds rounds of --k back-to-back calls, held once against its
-plain twin (relmax, max|a - b| / max|b|, worst output), called once
-under torch.cuda.set_sync_debug_mode("error") (`sync_free`: true, or the
-error a synchronising call raised), and profiled over 5 calls
-(torch.profiler: `kernel_ms`, the device time of the CUDA kernel itself
-per call, and `other_device_ms`, that of everything else the wrapper
-runs on the device: copies, PyTorch's own kernels).
+is recorded as the refresh's eager body calls it (`recording`, which
+chip_smoke.py uses too). Each of the six is then timed with CUDA events,
+the median of --rounds rounds of --k back-to-back calls, held once
+against its plain twin (relmax, max|a - b| / max|b|, worst output),
+called once under torch.cuda.set_sync_debug_mode("error") (`sync_free`:
+true, or the error a synchronising call raised), and profiled over 5
+calls (torch.profiler: `kernel_ms`, the device time of the CUDA kernel
+itself per call, and `other_device_ms`, that of everything else the
+wrapper runs on the device: copies, PyTorch's own kernels).
 
 Two McICA stages are timed as a whole, so that checkouts whose K1 and K2
 take different inputs compare: `lw_mcica_stage` and `sw_mcica_stage`,
@@ -31,7 +31,8 @@ checkout whose K1/K2 take threefry subkeys and band planes derives them
 first, with ops.mcica.subcolumn_keys and band_optics_coeffs_sw + a
 stack; one whose kernels take play, rei and rel runs the kernel alone):
 `ms` (CUDA events, as above), `device_ms` and `launches` per call
-(torch.profiler). `refresh` is the whole radiation_refresh: `wall_ms`,
+(torch.profiler). `refresh` is the whole radiation_refresh, the
+captured entry where the checkout has one: `wall_ms`,
 the median of --rounds x --k refreshes each timed on the host clock
 between two synchronisations, and `device_ms`, `launches` and the `top`
 device kernels (name, ms, launches) per refresh (torch.profiler over 5).
@@ -370,6 +371,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
     from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
+    from geosradiation_gridcomp_tpu_torch.driver import step
     from geosradiation_gridcomp_tpu_torch.driver.step import (
         radiation_refresh, sw_partition_bounds)
     from geosradiation_gridcomp_tpu_torch.kernels import build
@@ -399,11 +401,13 @@ def main(argv=None):
     mods = dict(sw=swm.RRTMGSW.from_reference_tables(dev),
                 lw=lwm.RRTMGLW.from_reference_tables(dev))
 
-    def refresh():
-        return radiation_refresh(inp, DOY, UTC, config=cfg, ict=ict,
-                                 icb=icb, sw_nlit=nlit, sw_ncld=ncld, **mods)
+    def refresh(entry=radiation_refresh):
+        return entry(inp, DOY, UTC, config=cfg, ict=ict, icb=icb,
+                     sw_nlit=nlit, sw_ncld=ncld, **mods)
+    # the wrappers are recorded as the eager body calls them (a checkout
+    # from before the captured entry has no eager name: its entry is one)
     with recording() as calls:
-        refresh()
+        refresh(getattr(step, "radiation_refresh_eager", radiation_refresh))
         torch.cuda.synchronize()
 
     out = dict(label=args.label, card=smi.splitlines()[0])

@@ -33,7 +33,11 @@ card bitwise equal to the unsharded one, K1-K6 launched; StagedFeed's
 round trip through pinned memory and a side stream. The satellite
 simulators: cosp_simulator on the card against the CPU (integers exact,
 fill values in place, counts exact, floats <= 5e-5, no kernel), and the
-radar's point blocks bitwise equal to one unblocked call.
+radar's point blocks bitwise equal to one unblocked call. The captured
+step entries at 64 x 72: replays bitwise equal to the eager bodies at two
+doy values and on two scenes, K1-K6 counted once per replay, outputs of
+successive calls sharing no storage, a replay and the eager bodies
+under set_sync_debug_mode("error"), and a new shape captured anew.
 """
 
 import numpy as np
@@ -830,3 +834,102 @@ def test_quickbeam_blocks_on_the_card(dev, monkeypatch):
     parts = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
     for k in whole:
         assert torch.equal(parts[k], whole[k]), k
+
+
+STEP_KERNELS = ("mcica_optics_lw", "mcica_optics_sw", "taumol_lw", "rtrnmc",
+                "taumol_sw", "spcvmc")
+
+
+def _step_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _step_tensors(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _step_tensors(x)]
+    return [tree]
+
+
+@pytest.fixture(scope="module")
+def captured_step(dev):
+    """refresh + update at 64 x 72 with packing, through the captured
+    entries or the eager bodies, on the scene of a seed."""
+    cfg = RadiationConfig()
+    mods = dict(sw=swm.RRTMGSW.from_reference_tables(dev),
+                lw=lwm.RRTMGLW.from_reference_tables(dev))
+    scenes = {s: example_inputs(64, NLEV, seed=s, device=dev) for s in (0, 1)}
+    bounds = step.sw_partition_bounds(scenes[0].lons, scenes[0].lats,
+                                      scenes[0].fcld, DOY, 12.0, cfg,
+                                      bucket=8)
+
+    def run(seed=0, doy=DOY, eager=False, ncol=64):
+        inp = scenes[seed]
+        if ncol != 64:
+            inp = type(inp)(*(x[:ncol] for x in inp))
+        refresh, update = ((step.radiation_refresh_eager,
+                            step.radiation_update_eager) if eager
+                           else (step.radiation_refresh,
+                                 step.radiation_update))
+        sol, irr = refresh(inp, doy, 12.0, config=cfg, ict=69, icb=71,
+                           sw_nlit=bounds[0], sw_ncld=bounds[1], **mods)
+        upd = update(sol, irr, inp.tsinst + 0.5, inp.lons, inp.lats, inp.ple,
+                     doy, 12.25, config=cfg)
+        return sol, irr, upd
+    return run
+
+
+def test_captured_step_bitwise_equals_eager(captured_step):
+    """The replays at two doy values (the second not the one captured) and
+    on two scenes are bitwise equal to the eager bodies."""
+    for seed in (0, 1):
+        for doy in (DOY, DOY + 0.001):
+            got = captured_step(seed, doy)
+            want = captured_step(seed, doy, eager=True)
+            for a, b in zip(_step_tensors(got), _step_tensors(want)):
+                assert torch.equal(a, b), (seed, doy)
+
+
+def test_captured_step_counts_each_kernel_once_per_replay(captured_step):
+    captured_step()
+    for n in (1, 2):
+        LAUNCHES.clear()
+        for _ in range(n):
+            captured_step(doy=DOY + 0.5)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == dict.fromkeys(STEP_KERNELS, n)
+
+
+def test_captured_step_outputs_do_not_alias(captured_step):
+    a, b = captured_step(0), captured_step(1)
+    mine = [t.untyped_storage().data_ptr() for t in _step_tensors((a, b))]
+    assert len(set(mine)) == len(mine)
+    # the first call's states are the seed-0 results still
+    for x, y in zip(_step_tensors(a), _step_tensors(captured_step(0, eager=True))):
+        assert torch.equal(x, y)
+
+
+def test_captured_step_does_not_synchronise(captured_step):
+    """A replayed refresh + update, and the eager bodies, under
+    set_sync_debug_mode("error"): no copy from host memory, no read of a
+    device value."""
+    captured_step()
+    captured_step(eager=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        captured_step(doy=DOY + 0.25)
+        captured_step(doy=DOY + 0.25, eager=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_a_new_key_captures_anew(captured_step):
+    refresh = step.radiation_refresh
+    captured_step()
+    before = len(refresh.graphs)
+    got = captured_step(ncol=56)
+    assert len(refresh.graphs) == before + 1
+    for a, b in zip(_step_tensors(got), _step_tensors(captured_step(eager=True,
+                                                        ncol=56))):
+        assert torch.equal(a, b)
+    captured_step(ncol=56)
+    assert len(refresh.graphs) == before + 1
