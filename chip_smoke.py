@@ -15,14 +15,18 @@ nvcc per source side by side, then:
    12 UTC, with sw_partition_bounds daylight packing. The entries are
    captured (driver/compiled.py, the counterpart of the reference's
    jax.jit): the first call warms up, captures a CUDA graph per static
-   key and replays it, and every kernel K1-K6 must launch exactly once
+   key and replays it (the scheme entries rrtmg_sw and rrtmg_lw run
+   their bodies inside that capture and record no graph of their own),
+   and every kernel K1-K6 must launch exactly once
    (LAUNCHES counts each replay's recorded launches); the capture's own
    time and the graph pool's size are printed; a second call replays,
    counts K1-K6 once again and returns outputs bitwise equal to the
    first's and sharing no storage with them; the first call of each
    kernel's wrapper is recorded through the eager bodies
-   (radiation_refresh_eager, radiation_update_eager), and the replays
-   must be bitwise equal to the eager bodies at doy 172 and at 172.001,
+   (radiation_refresh_eager, radiation_update_eager, op by op: every
+   captured entry they reach runs its body, driver.compiled.
+   disable_capture), and the replays must be bitwise equal to the eager
+   bodies at doy 172 and at 172.001,
    which no graph was captured at;
    every IrradState field and LW export must agree with the plain path on
    the same card to relmax <= 5e-5, every SolarState field and SW export
@@ -64,7 +68,9 @@ nvcc per source side by side, then:
    exactly equal, gather_rows timed with each output kept alive for 4
    calls (kernel_ab.rotating: the writes then exceed the 50 MB L2) and,
    for comparison, dropped at once, beside the library calls tab[idx] and
-   index_select (library_ms: the faster); P3's full variant equal to K3
+   index_select (library_ms: the faster); gather_lanes beside its library
+   call, one advanced index tabT[g, idx] that gives its block layout
+   (exactly equal; library_ms); P3's full variant equal to K3
    bit for bit and every variant within relmax 5e-4 of its twin in every
    band, at 1024 x 72. Every kernel's device time (torch.profiler,
    device_ms) beside its CUDA-event time;
@@ -77,56 +83,75 @@ nvcc per source side by side, then:
    P3 must launch there;
 6. rats phase: the RATS diagnostics (the LW re-solved with each of the 8
    trace gases zeroed in turn, driver/diagnostics.py:rats_refresh) at
-   8192 x 72 with the step's ict/icb, through the kernels: K1, K3 and K4
-   must launch exactly 8 times each and nothing else; K3 within relmax
-   5e-4 of its twin in every band on each gas's inputs (the zeroed gas
+   8192 x 72 with the step's ict/icb, through the kernels: its 8 solves
+   replay one captured rrtmg_lw graph (the first call captures it: its
+   time and the graph pool's growth are printed), K1, K3 and K4 must
+   launch exactly 8 times each and nothing else; the states bitwise
+   equal to the eager body's (op by op, driver.compiled.disable_capture)
+   at doy 172 and 172.001; K3 within relmax 5e-4 of its twin in every
+   band on each gas's inputs, recorded on the eager body (the zeroed gas
    drives taumol's specparm to its edges); every gas's RatsState within
-   relmax 5e-5 of the plain twins on the card (the LW gate); rats_update's CO2 and CH4 TOA forcing, each column mean
-   positive and CO2's above CH4's; the refresh's wall time (median of 5)
-   and device time (CUDA events);
+   relmax 5e-5 of the plain twins on the card (the LW gate);
+   rats_update's CO2 and CH4 TOA forcing, each column mean positive and
+   CO2's above CH4's; the replayed and the eager refresh under
+   set_sync_debug_mode("error"); eager, captured, captured, eager: the
+   wall time (median of 5) and CUDA-event time of each; the peak device
+   memory of each;
 7. chou phase: radiation_refresh + radiation_update with the Chou-Suarez
-   SW and LW schemes at 8192 x 72 on the card, where no CUDA kernel of
-   the port may launch; every SolarState and IrradState field and every
-   flux export within relmax 5e-5 of the same functions on the CPU on the
-   first 256 columns, the heating rates in the reference's form
-   (heating_rate_gates at those flux gates); SW net / TOA insolation in
-   [0, 1] and OLR in 120-340 W/m^2; where the refresh, which stays on
-   the eager body, first synchronises the stream (reported); the wall
-   time (median of 3) and the peak device memory;
+   SW and LW schemes at 8192 x 72 on the card through the captured
+   entries, where no CUDA kernel of the port may launch; the first
+   call's time and the pool's growth; every SolarState and IrradState
+   field and every flux export within relmax 5e-5 of the same functions
+   on the CPU on the first 256 columns, the heating rates in the
+   reference's form (heating_rate_gates at those flux gates); SW net /
+   TOA insolation in [0, 1] and OLR in 120-340 W/m^2; the replays
+   bitwise equal to the eager body (op by op) at doy 172 and 172.001;
+   replay and eager body under set_sync_debug_mode("error"); eager,
+   captured, captured, eager: wall (median of 3) and CUDA-event time;
+   the peak device memory of each route; then the phase's graphs are
+   dropped (drop_graphs), so later captures reuse their pool blocks;
 8. rrtmgp phase: radiation_refresh + radiation_update with the RRTMGP SW
-   and LW schemes through the RRTMG-reduced facade at 8192 x 72: K3, K4
-   and K5 must launch exactly once each and nothing else (K5 on all
-   8192 columns: the facade does not pack daylight); K3 and K5 within
-   relmax 5e-4 of their twins in every band and K4 in every output, on
-   the inputs this path gives them; every IrradState field and LW export
-   within 5e-5 of plain=True on the card, every SolarState field and SW
-   export within 5e-4 with at most 0.5 % of columns beyond 5e-5, the
-   heating rates in the reference's form; SW net / TOA insolation in
-   [0, 1] and OLR in 150-350 W/m^2; the clear-sky difference from the
-   RRTMG step (flcn, flc), where the refresh (eager, as Chou's) first
-   synchronises the stream, the wall time (median of 3) and CUDA-event
-   time of the refresh, the plain refresh's wall, the McICA draws'
-   time (_gen_max_ran_mask, SW and LW) and the peak device memory;
+   and LW schemes through the RRTMG-reduced facade at 8192 x 72 through
+   the captured entries: K3, K4 and K5 must launch exactly once each per
+   replay and nothing else (K5 on all 8192 columns: the facade does not
+   pack daylight); the first call's time and the pool's growth; K3 and
+   K5 within relmax 5e-4 of their twins in every band and K4 in every
+   output, on the inputs the eager body gives them (recorded there: a
+   replay calls no wrapper); the replays bitwise equal to the eager body
+   at doy 172 and 172.001; every IrradState field and LW export within
+   5e-5 of plain=True on the card, every SolarState field and SW export
+   within 5e-4 with at most 0.5 % of columns beyond 5e-5, the heating
+   rates in the reference's form; SW net / TOA insolation in [0, 1] and
+   OLR in 150-350 W/m^2; replay and eager body under
+   set_sync_debug_mode("error"); the clear-sky difference from the RRTMG
+   step (flcn, flc); eager, captured, captured, eager: wall (median of
+   3) and CUDA-event time; the plain refresh's wall, the McICA draws'
+   time (_gen_max_ran_mask, SW and LW) and the peak device memory of each
+   route; then the phase's graphs are dropped;
 9. rrtmgp_native phase: the same through the native engine, on a
    synthetic 2-band coefficient set written to build/ (a numpy copy of
-   the reference's tests/test_rrtmgp_engine.py:make_kdist), at 8192 x 72:
-   no kernel may launch, olrb has the set's 2 bands, every state field
-   and export within 5e-5 of the CPU on the first 256 columns (the
-   grazing-sun columns, cos zenith under 1e-4, reported apart: there the
-   reference's two mu0 floors make the normalized SW state follow the
-   card's and the CPU's cosine itself), the
-   heating rates in the reference's form, physics, wall time and peak
-   memory;
+   the reference's tests/test_rrtmgp_engine.py:make_kdist), at 8192 x 72
+   through the captured entries: no kernel may launch, olrb has the
+   set's 2 bands, every state field and export within 5e-5 of the CPU
+   on the first 256 columns (the grazing-sun columns, cos zenith under
+   1e-4, reported apart: there the reference's two mu0 floors make the
+   normalized SW state follow the card's and the CPU's cosine itself),
+   the heating rates in the reference's form, physics; the replays
+   bitwise equal to the eager body at two doy values, both sync-free;
+   both routes' wall and CUDA-event times, the first call, the pool and
+   the peak memory; then the phase's graphs are dropped;
 10. driver phase: a RadiationClock (30 min heartbeat, hourly refresh) for
    4 heartbeats at 8192 x 72 with the kernels: validate_inputs and
-   radiation_refresh (captured) + rats_refresh on the alarm,
-   radiation_update (captured) +
-   rats_update every heartbeat, check_finite on every new state and
-   export; then the same run stopped after heartbeat 2, checkpointed
+   radiation_refresh (captured) + rats_refresh (rrtmg_lw captured) on
+   the alarm, radiation_update (captured) + rats_update every heartbeat,
+   check_finite on every new state and export; then the same run
+   stopped after heartbeat 2, checkpointed
    (build/driver_checkpoint.npz) and restarted from
    load_checkpoint(device="cuda"): every export of the restarted run
    bitwise equal to the uninterrupted run's; the update's wall time per
-   heartbeat;
+   heartbeat; the alarm's radiation_refresh + rats_refresh replayed
+   bitwise equal to the eager bodies at two doy values, both under
+   set_sync_debug_mode("error"), and both routes' times;
 11. satsim phase: cosp_simulator (SatsimConfig(): 50 subcolumns, every
    simulator, the 40-bin CloudSat stat grid) at 8192 points x 50
    subcolumns x 72 levels on a scene made from the realistic one
@@ -169,8 +194,9 @@ band_optics_coeffs_sw (K1 and K2 derive the subkeys, K2 the SW band
 optics, on the card), and the solar_refresh and irrad_refresh stages
 alone, beside subcolumn_keys, now off the kernel path (CUDA events);
 and the same device profile of the RATS refresh, the Chou refresh +
-update, the RRTMGP facade refresh, the native RRTMGP refresh + update,
-a heartbeat's radiation_update + rats_update and cosp_simulator.
+update, the RRTMGP facade refresh and the native RRTMGP refresh + update,
+each replayed and eager (op by op), of a heartbeat's radiation_update +
+rats_update and of cosp_simulator.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
@@ -699,10 +725,20 @@ def raw_and_profiling_kernel_phases(torch, dev, draw):
                         dtype=torch.int32)
     idx2d = idx.reshape(-1, 128)
     out = gather_lanes(idx2d, tabt)
+    # the library: one advanced-indexing call that gives the kernel's
+    # block layout directly, [nblk, ng, 64, 128], on int64 indices (as
+    # gather_rows' library calls take them)
+    g = torch.arange(tabt.shape[0], device=dev)[None, :, None, None]
+    blocks = idx2d.view(-1, 1, 64, 128).long()
+    library = lambda: tabt[g, blocks]
+    exact("gather_lanes library call", library().reshape(out.shape), out)
+    lib_ms = time_ms(torch, library, 20)
+    print(f"P2 gather_lanes at {n} points, {rows} x 16 table: library "
+          f"tabT[g, idx] {lib_ms:.4f} ms")
     timed("gather_lanes", lambda: gather_lanes(idx2d, tabt),
           lambda: gather_lanes_plain(idx2d, tabt),
           exact("gather_lanes", out, gather_lanes_plain(idx2d, tabt)),
-          bound(nbytes(idx2d, tabt, out)), n_plain=20)
+          bound(nbytes(idx2d, tabt, out)), n_plain=20, library_ms=lib_ms)
 
     coefs, tabs = lw_coefs(dev, ncol)
     print(f"P3 taumol_lw_bisect at {ncol} x {NLEV}:")
@@ -807,13 +843,18 @@ def step_phase(torch, dev):
     mods = dict(sw=RRTMGSW.from_reference_tables(dev),
                 lw=RRTMGLW.from_reference_tables(dev))
 
+    # the eager route runs op by op: the scheme entries the eager refresh
+    # reaches run their bodies too (op_by_op), as before they were
+    # captured entries themselves
     def refresh(plain=False, eager=False, doy=DOY):
-        entry = radiation_refresh_eager if eager else radiation_refresh
+        entry = op_by_op(radiation_refresh_eager) if eager \
+            else radiation_refresh
         return entry(inp, doy, UTC, config=cfg, ict=ict, icb=icb,
                      sw_nlit=nlit, sw_ncld=ncld, plain=plain, **mods)
 
     def update(states, eager=False, doy=DOY):
-        entry = radiation_update_eager if eager else radiation_update
+        entry = op_by_op(radiation_update_eager) if eager \
+            else radiation_update
         return entry(*states, inp.tsinst + 0.5, inp.lons, inp.lats, inp.ple,
                      doy, UTC + 0.25, config=cfg)
 
@@ -972,7 +1013,7 @@ def step_phase(torch, dev):
     first = walls(torch, unpacked(radiation_refresh), 1)[0]
     later = {k: statistics.median(walls(torch, unpacked(entry), 5))
              for k, entry in (("replays", radiation_refresh),
-                              ("eager", radiation_refresh_eager))}
+                              ("eager", op_by_op(radiation_refresh_eager)))}
     print(f"  a new key in a warm process (no packing): first call "
           f"(warm-up + capture + replay) {first * 1e3:.1f} ms, then "
           f"replays {later['replays'] * 1e3:.3f} ms and the eager body "
@@ -1096,10 +1137,114 @@ def walls(torch, fn, n):
     return out
 
 
+def op_by_op(fn):
+    """fn with every captured entry it reaches on its body
+    (driver.compiled.disable_capture, jax.disable_jit's counterpart): the
+    eager route, op by op, as it was timed before the scheme entries were
+    captured."""
+    from geosradiation_gridcomp_tpu_torch.driver.compiled import \
+        disable_capture
+
+    def run(*args, **kwargs):
+        with disable_capture():
+            return fn(*args, **kwargs)
+    return run
+
+
+def unequal_leaves(torch, a, b):
+    """How many leaves of a and b differ (not bitwise equal)."""
+    from geosradiation_gridcomp_tpu_torch.parallel.sharding import \
+        tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} leaves against {len(lb)}")
+    return sum(not torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def first_call(torch, dev, run):
+    """The first call of run with a new key (warm-up + capture + replay):
+    (its result, its wall ms, the MiB the shared graph pool grew by)."""
+    torch.cuda.synchronize()
+    pool = pool_bytes(torch, dev)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            (pool_bytes(torch, dev) - pool) / 2**20)
+
+
+def route_times(torch, label, captured, eager_run, n):
+    """eager, captured, captured, eager in one call: the wall (host clock
+    between two synchronisations, median of n) and the CUDA-event time
+    (mean of n back-to-back calls) of each; prints them and returns
+    {route: ([walls ms], [events ms])}."""
+    fns = {"captured": captured, "eager": eager_run}
+    out = {k: ([], []) for k in fns}
+    for k in ("eager", "captured", "captured", "eager"):
+        out[k][0].append(statistics.median(walls(torch, fns[k], n)) * 1e3)
+        out[k][1].append(time_ms(torch, fns[k], n))
+    f = lambda xs: " / ".join(f"{x:.3f}" for x in xs)
+    print(f"  {label}: wall (median of {n}) captured "
+          f"{f(out['captured'][0])}, eager {f(out['eager'][0])} ms; CUDA "
+          f"events (mean of {n}) captured {f(out['captured'][1])}, eager "
+          f"{f(out['eager'][1])} ms")
+    return out
+
+
+def sync_free_gate(torch, name, run):
+    """Raise unless run() goes through under set_sync_debug_mode("error")
+    (first_sync finds no blocker)."""
+    where = first_sync(torch, run)
+    print(f"  {name} under set_sync_debug_mode('error'): "
+          f"{'no synchronising call' if where is None else where}")
+    if where is not None:
+        raise AssertionError(f"{name} synchronises the stream at {where}")
+
+
+def replay_vs_eager(torch, label, captured, eager_run, doys):
+    """Gate: captured(doy) bitwise equal to eager_run(doy) at each doy."""
+    for doy in doys:
+        n = unequal_leaves(torch, captured(doy), eager_run(doy))
+        gate(f"{label} replay vs eager body at doy {doy}: leaves not "
+             f"bitwise equal", n, 0)
+
+
+def peak_mib(torch, run):
+    """Peak device memory allocated (MiB) over one call of run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def drop_graphs(torch, dev, config):
+    """Drop the captured refresh's and update's graphs of config once its
+    phase is done: their blocks return to the shared pool, where later
+    captures reuse them, instead of each phase's key adding its share
+    (the Chou-Suarez and RRTMGP keys hold some 12 and 18 GB)."""
+    from geosradiation_gridcomp_tpu_torch.driver.step import (
+        radiation_refresh, radiation_update)
+    n = 0
+    for entry in (radiation_refresh, radiation_update):
+        for key in [k for k in entry.graphs if ("config", config) in k[0]]:
+            del entry.graphs[key]
+            n += 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  dropped this phase's {n} graphs: pool "
+          f"{pool_bytes(torch, dev) / 2**20:.1f} MiB, reserved "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB")
+
+
 def rats_phase(torch, step, profile=False):
-    """RATS at full width through rats_refresh, against the plain twins
-    (with profile, where its time goes); returns the launches of the
-    kernel run."""
+    """RATS at full width through rats_refresh, whose 8 solves replay one
+    captured rrtmg_lw graph: K1, K3 and K4 8 times each over the replays;
+    the states bitwise equal to the eager body's (op_by_op), on which
+    K3's inputs are recorded and held to its twin; against the plain
+    twins; the replays and the eager body sync-free; both routes' times,
+    the first call and the pool (with profile, where its time goes).
+    Returns the launches of the captured run."""
     from geosradiation_gridcomp_tpu_torch.driver.diagnostics import (
         RATS_GASES, rats_refresh, rats_update)
     from geosradiation_gridcomp_tpu_torch.driver.radiation import \
@@ -1110,14 +1255,29 @@ def rats_phase(torch, step, profile=False):
         NGS_LW, taumol_lw)
 
     inp, cfg, ict, icb = step["inp"], step["cfg"], step["ict"], step["icb"]
-    lw = step["mods"]["lw"]
+    lw, dev = step["mods"]["lw"], inp.t.device
 
-    def refresh(plain=False):
-        return rats_refresh(inp, DOY, cfg, ict, icb, lw=lw, plain=plain)
+    def refresh(doy=DOY, plain=False):
+        return rats_refresh(inp, doy, cfg, ict, icb, lw=lw, plain=plain)
+    eager_refresh = op_by_op(refresh)
 
     print(f"rats: rats_refresh over {len(RATS_GASES)} gases at "
           f"{inp.t.shape[0]} x {NLEV}:")
-    # K3's inputs of each solve, kept to hold K3 to its twin on them
+    LAUNCHES.clear()
+    rats, first_ms, pool_mib = first_call(torch, dev, refresh)
+    launches = dict(LAUNCHES)
+    print(f"  kernel launches in the rats path: {launches}")
+    want = {k: len(RATS_GASES)
+            for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc")}
+    if launches != want:
+        raise AssertionError(f"rats path launched {launches}, not {want}")
+    keys = [k for k in lwm.rrtmg_lw.graphs if ("lw", lw) in k[0]]
+    print(f"  first call (rrtmg_lw's warm-up + capture, 8 replays) "
+          f"{first_ms:.1f} ms; graph pool +{pool_mib:.1f} MiB for "
+          f"{len(keys)} rrtmg_lw key")
+    gate("rrtmg_lw keys of the 8 solves, beyond one", len(keys) - 1, 0)
+    # K3's inputs of each solve, recorded on the eager body (a replay
+    # calls no wrapper), to hold K3 to its twin on them
     k3, k3_calls = lwm.taumol_lw_fast, []
 
     def k3_recorded(*args, **kwargs):
@@ -1125,18 +1285,13 @@ def rats_phase(torch, step, profile=False):
         return k3(*args, **kwargs)
     lwm.taumol_lw_fast = k3_recorded
     try:
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        rats = refresh()
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+        eager_rats = eager_refresh()
     finally:
         lwm.taumol_lw_fast = k3
-    print(f"  kernel launches in the rats path: {launches}")
-    want = {k: len(RATS_GASES)
-            for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc")}
-    if launches != want:
-        raise AssertionError(f"rats path launched {launches}, not {want}")
+    gate("rats replay vs eager body: leaves not bitwise equal",
+         unequal_leaves(torch, rats, eager_rats), 0)
+    del eager_rats
+    replay_vs_eager(torch, "rats", refresh, eager_refresh, (DOY + 0.001,))
     for gas, (args, kwargs) in zip(RATS_GASES, k3_calls):
         err = max(band_relmax(a, b, NGS_LW) for a, b in zip(
             k3(*args, **kwargs), taumol_lw(*args, **kwargs)))
@@ -1147,6 +1302,7 @@ def rats_phase(torch, step, profile=False):
         err, field = max((relmax(getattr(rats, f)[g], getattr(plain, f)[g]),
                           f) for f in rats._fields)
         gate(f"{gas} RatsState relmax, worst ({field})", err, 5e-5)
+    del plain
     irr = irrad_refresh(inp, DOY, cfg, ict, icb, lw=lw)
     _, forcing = rats_update(rats, irr, inp.tsinst + 0.5)
     toa = {gas: forcing[RATS_GASES.index(gas), :, 0] for gas in ("CO2",
@@ -1157,25 +1313,32 @@ def rats_phase(torch, step, profile=False):
     co2, ch4 = float(toa["CO2"].mean()), float(toa["CH4"].mean())
     if not co2 > ch4 > 0.0:
         raise AssertionError(f"TOA forcing means CO2 {co2}, CH4 {ch4}")
-    print(f"  rats_refresh wall "
-          f"{statistics.median(walls(torch, refresh, 5)) * 1e3:.3f} ms "
-          f"(median of 5), {time_ms(torch, refresh, 5):.3f} ms by CUDA "
-          f"events (mean of 5)")
+    sync_free_gate(torch, "rats_refresh replayed", refresh)
+    sync_free_gate(torch, "rats_refresh eager", eager_refresh)
+    route_times(torch, "rats_refresh", refresh, eager_refresh, 5)
+    print(f"  peak device memory of one rats_refresh: eager "
+          f"{peak_mib(torch, eager_refresh):.1f} MiB, replayed "
+          f"{peak_mib(torch, refresh):.1f} MiB")
     if profile:
-        device_profile(torch, "RATS refresh", refresh, 3, top=8)
+        device_profile(torch, "RATS refresh, replayed", refresh, 3, top=8)
+        device_profile(torch, "RATS refresh, eager", eager_refresh, 3,
+                       top=8)
     return launches
 
 
 def chou_phase(torch, dev, profile=False):
-    """The Chou-Suarez schemes at full width on the card, against the
-    same functions on the CPU on the first 256 columns (with profile,
-    where their time goes)."""
+    """The Chou-Suarez schemes at full width on the card through the
+    captured radiation_refresh + radiation_update, no kernel launched;
+    against the same functions on the CPU on the first 256 columns; the
+    replays bitwise equal to the eager body (op_by_op) at two doy values;
+    replay and eager body sync-free; both routes' times, the first call,
+    the pool and the peak memory (with profile, where their time goes)."""
     from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
                                                          Scheme)
     from geosradiation_gridcomp_tpu_torch.driver.radiation import \
         AtmosInputs
     from geosradiation_gridcomp_tpu_torch.driver.step import (
-        radiation_refresh, radiation_update)
+        radiation_refresh, radiation_refresh_eager, radiation_update)
     from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
     from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
@@ -1184,51 +1347,65 @@ def chou_phase(torch, dev, profile=False):
     ple0 = inp.ple[0].cpu().numpy()
     ict, icb = cfg.superlayer_indices(0.5 * (ple0[1:] + ple0[:-1]))
 
-    def run(x):
-        sol, irr = radiation_refresh(x, DOY, UTC, config=cfg, ict=ict,
-                                     icb=icb)
-        return sol, irr, radiation_update(sol, irr, x.tsinst + 0.5, x.lons,
-                                          x.lats, x.ple, DOY, UTC + 0.25,
-                                          config=cfg)
+    def refresh(doy=DOY, x=inp, entry=radiation_refresh):
+        return entry(x, doy, UTC, config=cfg, ict=ict, icb=icb)
+    eager_refresh = op_by_op(
+        lambda doy=DOY: refresh(doy, entry=radiation_refresh_eager))
+
+    def update(states, x=inp):
+        return radiation_update(*states, x.tsinst + 0.5, x.lons, x.lats,
+                                x.ple, DOY, UTC + 0.25, config=cfg)
 
     print(f"chou: Chou-Suarez radiation_refresh + radiation_update at "
           f"{NCOL_SLICE} x {NLEV}, ict={ict} icb={icb}:")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    sol, irr, upd = run(inp)
+    (sol, irr), first_ms, pool_mib = first_call(torch, dev, refresh)
+    upd = update((sol, irr))
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
     if LAUNCHES:
         raise AssertionError(f"the Chou path launched {dict(LAUNCHES)}")
+    print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
+          f"graph pool +{pool_mib:.1f} MiB for the key")
     n = 256
-    sol_c, irr_c, upd_c = run(AtmosInputs(*(x[:n].cpu() for x in inp)))
-    pairs = state_and_export_pairs(sol, irr, upd, (sol_c, irr_c, upd_c))
+    head = AtmosInputs(*(x[:n].cpu() for x in inp))
+    states_c = refresh(x=head)
+    cpu = (*states_c, update(states_c, head))
+    pairs = state_and_export_pairs(sol, irr, upd, cpu)
     err, name = max((relmax(a[:n].cpu(), b), name) for name, a, b in pairs)
     gate(f"card vs CPU relmax, worst of {len(pairs)} ({name})", err, 5e-5)
     # the heating rates divide flux differences by dp, a few Pa near the
     # model top: gated in the reference's form, as in the step phase
-    heating_rate_gates(upd["dtdt"][:n].cpu(), upd_c["dtdt"],
-                       inp.ple[:n].cpu(), upd_c["sw"]["fsw"],
-                       upd_c["lw"]["flw"], 5e-5, 5e-5)
+    heating_rate_gates(upd["dtdt"][:n].cpu(), cpu[2]["dtdt"],
+                       inp.ple[:n].cpu(), cpu[2]["sw"]["fsw"],
+                       cpu[2]["lw"]["flw"], 5e-5, 5e-5)
     check_physical(torch, sol, irr, upd, (120.0, 340.0))
-    print(f"  the refresh stays on the eager body; it first synchronises "
-          f"the stream at {first_sync(torch, lambda: run(inp))}")
-    t = statistics.median(walls(torch, lambda: run(inp), 3))
-    print(f"  refresh + update wall {t * 1e3:.1f} ms (median of 3, "
-          f"{NCOL_SLICE / t:.0f} columns/s); peak device memory "
-          f"{peak / 2**20:.1f} MiB")
+    del cpu, states_c, upd
+    replay_vs_eager(torch, "chou refresh", refresh, eager_refresh,
+                    (DOY, DOY + 0.001))
+    sync_free_gate(torch, "chou refresh replayed", refresh)
+    sync_free_gate(torch, "chou refresh eager", eager_refresh)
+    route_times(torch, "chou radiation_refresh", refresh, eager_refresh, 3)
+    print(f"  peak device memory of one refresh: eager "
+          f"{peak_mib(torch, eager_refresh):.1f} MiB, replayed "
+          f"{peak_mib(torch, refresh):.1f} MiB beside the graph pool's "
+          f"{pool_bytes(torch, dev) / 2**20:.1f} MiB")
     if profile:
-        device_profile(torch, "Chou refresh + update", lambda: run(inp), 1,
-                       top=10)
+        device_profile(torch, "Chou refresh + update, replayed",
+                       lambda: update(refresh()), 1, top=10)
+        device_profile(torch, "Chou refresh + update, eager",
+                       lambda: update(eager_refresh()), 1, top=10)
+    drop_graphs(torch, dev, cfg)
 
 
 def rrtmgp_phase(torch, step, profile=False):
-    """The RRTMGP facade at full width through radiation_refresh +
-    radiation_update: K3, K4 and K5 once each per refresh on the inputs
-    this path gives them, held to their twins; the refresh against
-    plain=True on the card; physics; times and peak memory (with profile,
-    where its time goes). Returns the launches of the kernel run."""
+    """The RRTMGP facade at full width through the captured
+    radiation_refresh + radiation_update: K3, K4 and K5 once each per
+    replay, each held to its twin on the inputs the eager body
+    (op_by_op) gives it; the replays bitwise equal to the eager body at
+    two doy values; the refresh against plain=True on the card; physics;
+    replay and eager body sync-free; both routes' times, the first call,
+    the pool and the peak memory (with profile, where its time goes).
+    Returns the launches of the captured run."""
     from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
                                                          Scheme)
     from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
@@ -1236,7 +1413,7 @@ def rrtmgp_phase(torch, step, profile=False):
     from geosradiation_gridcomp_tpu_torch.driver.radiation import (
         _common_derived)
     from geosradiation_gridcomp_tpu_torch.driver.step import (
-        radiation_refresh, radiation_update)
+        radiation_refresh, radiation_refresh_eager, radiation_update)
     from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import mid_heights
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
@@ -1248,21 +1425,36 @@ def rrtmgp_phase(torch, step, profile=False):
     from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme
 
     inp, ict, icb, mods = step["inp"], step["ict"], step["icb"], step["mods"]
+    dev = inp.t.device
     cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
 
-    def refresh(plain=False):
-        return radiation_refresh(inp, DOY, UTC, config=cfg, ict=ict,
-                                 icb=icb, plain=plain, **mods)
+    def refresh(doy=DOY, plain=False, entry=radiation_refresh):
+        return entry(inp, doy, UTC, config=cfg, ict=ict, icb=icb,
+                     plain=plain, **mods)
+    eager_refresh = op_by_op(
+        lambda doy=DOY: refresh(doy, entry=radiation_refresh_eager))
 
-    def run(plain):
-        sol, irr = refresh(plain)
-        return sol, irr, radiation_update(sol, irr, inp.tsinst + 0.5,
-                                          inp.lons, inp.lats, inp.ple, DOY,
-                                          UTC + 0.25, config=cfg)
+    def update(states):
+        return radiation_update(*states, inp.tsinst + 0.5, inp.lons,
+                                inp.lats, inp.ple, DOY, UTC + 0.25,
+                                config=cfg)
 
     print(f"rrtmgp: RRTMGP facade radiation_refresh + radiation_update at "
           f"{inp.t.shape[0]} x {NLEV}:")
-    # each kernel's inputs on this path, kept to hold it to its twin
+    LAUNCHES.clear()
+    (sol, irr), first_ms, pool_mib = first_call(torch, dev, refresh)
+    upd = update((sol, irr))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"  kernel launches in the rrtmgp path: {launches}")
+    want = dict.fromkeys(("taumol_lw", "taumol_sw", "rtrnmc"), 1)
+    if launches != want:
+        raise AssertionError(f"rrtmgp path launched {launches}, not {want}")
+    print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
+          f"graph pool +{pool_mib:.1f} MiB for the key")
+
+    # each kernel's inputs on this path, recorded on the eager body (a
+    # replay calls no wrapper), to hold it to its twin
     wrapped = {"taumol_lw": (kdist, "taumol_lw_fast"),
                "taumol_sw": (kdist, "taumol_sw_fast"),
                "rtrnmc": (rte, "rtrnmc_fast")}
@@ -1277,20 +1469,15 @@ def rrtmgp_phase(torch, step, profile=False):
     try:
         for k, (m, a) in wrapped.items():
             setattr(m, a, recorder(k))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        LAUNCHES.clear()
-        sol, irr, upd = run(plain=False)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
+        eager_states = eager_refresh()
     finally:
         for k, (m, a) in wrapped.items():
             setattr(m, a, saved[k])
-    print(f"  kernel launches in the rrtmgp path: {launches}")
-    want = dict.fromkeys(wrapped, 1)
-    if launches != want:
-        raise AssertionError(f"rrtmgp path launched {launches}, not {want}")
+    gate("rrtmgp replay vs eager body: leaves not bitwise equal",
+         unequal_leaves(torch, (sol, irr), eager_states), 0)
+    del eager_states
+    replay_vs_eager(torch, "rrtmgp refresh", refresh, eager_refresh,
+                    (DOY + 0.001,))
 
     args, kw = calls["taumol_lw"]
     print(f"  K3 on {tuple(args[0].jp.shape)}, K5 on "
@@ -1317,7 +1504,8 @@ def rrtmgp_phase(torch, step, profile=False):
           f"{ms['taumol_sw']:.4f} ms")
     del calls, args, kw
 
-    ref = run(plain=True)
+    sol_p, irr_p = refresh(plain=True)
+    ref = (sol_p, irr_p, update((sol_p, irr_p)))
     flips = []
     for name, a, b in state_and_export_pairs(sol, irr, upd, ref):
         lw = name.startswith(("IrradState", "lw ")) or name in ("alw", "blw")
@@ -1329,9 +1517,9 @@ def rrtmgp_phase(torch, step, profile=False):
     heating_rate_gates(upd["dtdt"], ref[2]["dtdt"], inp.ple,
                        ref[2]["sw"]["fsw"], ref[2]["lw"]["flw"], 5e-4, 5e-5)
     check_physical(torch, sol, irr, upd, (150.0, 350.0))
-    del ref
-    print(f"  the refresh stays on the eager body; it first synchronises "
-          f"the stream at {first_sync(torch, refresh)}")
+    del ref, sol_p, irr_p
+    sync_free_gate(torch, "rrtmgp refresh replayed", refresh)
+    sync_free_gate(torch, "rrtmgp refresh eager", eager_refresh)
 
     # the clear sky against the RRTMG step (reported); spcvmc floors mu0
     # at 1e-4, rte_sw at 1e-6, so grazing-sun columns are also shown apart
@@ -1348,29 +1536,37 @@ def rrtmgp_phase(torch, step, profile=False):
           f"|diff| {max_abs(irr.flc, irr_g.flc):.4f} W/m^2")
     del sol_g, irr_g
 
-    t_kern = walls(torch, refresh, 3)
-    t_plain = walls(torch, lambda: refresh(True), 1)
+    route_times(torch, "rrtmgp radiation_refresh", refresh, eager_refresh,
+                3)
+    t_plain = walls(torch, lambda: refresh(plain=True), 1)
     play = _common_derived(inp)[0]
     zm = mid_heights(play, inp.t, inp.ple[..., -1])
     draws = {ng: time_ms(torch, lambda: scheme._gen_max_ran_mask(
         play, zm, inp.lats, DOY, inp.fcld, ng, mods["lw"].zcw_cols(1)), 2)
         for ng in (112, 140)}
-    print(f"  radiation_refresh wall {statistics.median(t_kern) * 1e3:.1f} "
-          f"ms (median of 3; {[round(t * 1e3, 1) for t in t_kern]}), "
-          f"{time_ms(torch, refresh, 3):.1f} ms by CUDA events (mean of 3); "
-          f"plain {t_plain[0] * 1e3:.1f} ms; the McICA draws "
+    print(f"  plain refresh {t_plain[0] * 1e3:.1f} ms; the McICA draws "
           f"(_gen_max_ran_mask) SW {draws[112]:.1f} + LW {draws[140]:.1f} "
-          f"ms by CUDA events; peak device memory {peak / 2**20:.1f} MiB")
+          f"ms by CUDA events; peak device memory of one refresh: eager "
+          f"{peak_mib(torch, eager_refresh):.1f} MiB, replayed "
+          f"{peak_mib(torch, refresh):.1f} MiB beside the graph pool's "
+          f"{pool_bytes(torch, dev) / 2**20:.1f} MiB")
     if profile:
-        device_profile(torch, "RRTMGP refresh", refresh, 1, top=12)
+        device_profile(torch, "RRTMGP refresh, replayed", refresh, 1,
+                       top=12)
+        device_profile(torch, "RRTMGP refresh, eager", eager_refresh, 1,
+                       top=12)
+    drop_graphs(torch, dev, cfg)
     return launches
 
 
 def rrtmgp_native_phase(torch, step, profile=False):
     """RRTMGP through the native engine (an ingested coefficient set: the
-    synthetic one, written to build/) at full width on the card, where no
-    kernel may launch, against the same functions on the CPU on the first
-    256 columns (with profile, where its time goes)."""
+    synthetic one, written to build/) at full width through the captured
+    radiation_refresh + radiation_update, where no kernel may launch;
+    against the same functions on the CPU on the first 256 columns; the
+    replays bitwise equal to the eager body (op_by_op) at two doy values;
+    replay and eager body sync-free; both routes' times, the first call,
+    the pool and the peak memory (with profile, where its time goes)."""
     import os
 
     from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
@@ -1380,13 +1576,14 @@ def rrtmgp_native_phase(torch, step, profile=False):
     from geosradiation_gridcomp_tpu_torch.driver.radiation import \
         AtmosInputs
     from geosradiation_gridcomp_tpu_torch.driver.step import (
-        radiation_refresh, radiation_update)
+        radiation_refresh, radiation_refresh_eager, radiation_update)
     from geosradiation_gridcomp_tpu_torch.kernels.build import (BUILD_DIR,
                                                                 LAUNCHES)
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import RRTMGLW
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.sw import RRTMGSW
 
     inp, ict, icb, mods = step["inp"], step["ict"], step["icb"], step["mods"]
+    dev = inp.t.device
     paths = [os.path.join(os.path.dirname(BUILD_DIR),
                           f"rrtmgp_kdist_{b}.npz") for b in ("lw", "sw")]
     os.makedirs(os.path.dirname(BUILD_DIR), exist_ok=True)
@@ -1396,32 +1593,37 @@ def rrtmgp_native_phase(torch, step, profile=False):
                           rrtmgp_kdist_lw=paths[0], rrtmgp_kdist_sw=paths[1],
                           outputs=frozenset({"olrb"}))
 
-    def run(x, m):
-        sol, irr = radiation_refresh(x, DOY, UTC, config=cfg, ict=ict,
-                                     icb=icb, **m)
-        return sol, irr, radiation_update(sol, irr, x.tsinst + 0.5, x.lons,
-                                          x.lats, x.ple, DOY, UTC + 0.25,
-                                          config=cfg)
+    def refresh(doy=DOY, x=inp, m=mods, entry=radiation_refresh):
+        return entry(x, doy, UTC, config=cfg, ict=ict, icb=icb, **m)
+    eager_refresh = op_by_op(
+        lambda doy=DOY: refresh(doy, entry=radiation_refresh_eager))
+
+    def update(states, x=inp):
+        return radiation_update(*states, x.tsinst + 0.5, x.lons, x.lats,
+                                x.ple, DOY, UTC + 0.25, config=cfg)
 
     print(f"rrtmgp_native: RRTMGP native engine (synthetic 2-band set, "
           f"{paths[0]}) radiation_refresh + radiation_update at "
           f"{inp.t.shape[0]} x {NLEV}:")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    sol, irr, upd = run(inp, mods)
+    (sol, irr), first_ms, pool_mib = first_call(torch, dev, refresh)
+    upd = update((sol, irr))
     torch.cuda.synchronize()
-    launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
     print(f"  kernel launches in the rrtmgp_native path: {launches}")
     if launches:
         raise AssertionError(f"the native path launched {launches}")
+    print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
+          f"graph pool +{pool_mib:.1f} MiB for the key")
     if tuple(irr.olrb.shape) != (inp.t.shape[0], 2):
         raise AssertionError(f"olrb has shape {tuple(irr.olrb.shape)}, not "
                              f"({inp.t.shape[0]}, 2)")
     n = 256
     head = AtmosInputs(*(x[:n].cpu() for x in inp))
-    cpu = run(head, dict(sw=RRTMGSW.from_reference_tables("cpu"),
-                         lw=RRTMGLW.from_reference_tables("cpu")))
+    cpu_mods = dict(sw=RRTMGSW.from_reference_tables("cpu"),
+                    lw=RRTMGLW.from_reference_tables("cpu"))
+    states_c = refresh(x=head, m=cpu_mods)
+    cpu = (*states_c, update(states_c, head))
     pairs = state_and_export_pairs(sol, irr, upd, cpu)
     # where the refresh's sun grazes the horizon (0 < cos zenith < 1e-4)
     # rte_sw_native floors mu0 at 1e-4 while the driver normalizes by the
@@ -1452,18 +1654,31 @@ def rrtmgp_native_phase(torch, step, profile=False):
               f"{inp.t.shape[0]}, SW net / TOA insolation max "
               f"{float(sol.flxn[grazing_all].max()):.4f} there (reported)")
     check_physical(torch, sol, irr, upd, (10.0, 70.0), ~grazing_all)
-    t = walls(torch, lambda: run(inp, mods), 3)
-    print(f"  refresh + update wall {statistics.median(t) * 1e3:.1f} ms "
-          f"(median of 3); peak device memory {peak / 2**20:.1f} MiB")
+    del cpu, states_c
+    replay_vs_eager(torch, "native refresh", refresh, eager_refresh,
+                    (DOY, DOY + 0.001))
+    sync_free_gate(torch, "native refresh replayed", refresh)
+    sync_free_gate(torch, "native refresh eager", eager_refresh)
+    route_times(torch, "native radiation_refresh", refresh, eager_refresh,
+                3)
+    print(f"  peak device memory of one refresh: eager "
+          f"{peak_mib(torch, eager_refresh):.1f} MiB, replayed "
+          f"{peak_mib(torch, refresh):.1f} MiB beside the graph pool's "
+          f"{pool_bytes(torch, dev) / 2**20:.1f} MiB")
     if profile:
-        device_profile(torch, "native RRTMGP refresh + update",
-                       lambda: run(inp, mods), 1, top=10)
+        device_profile(torch, "native RRTMGP refresh + update, replayed",
+                       lambda: update(refresh()), 1, top=10)
+        device_profile(torch, "native RRTMGP refresh + update, eager",
+                       lambda: update(eager_refresh()), 1, top=10)
+    drop_graphs(torch, dev, cfg)
     return launches
 
 
 def driver_phase(torch, step, profile=False):
     """The clock-driven model loop at full width with the kernels, then
-    the same run restarted from a checkpoint after heartbeat 2 (with
+    the same run restarted from a checkpoint after heartbeat 2; the
+    alarm's radiation_refresh + rats_refresh replayed bitwise equal to the
+    eager bodies (op_by_op) and sync-free, with both routes' times (with
     profile, where a heartbeat's update spends its time); returns the
     launches of the uninterrupted run."""
     import os
@@ -1483,18 +1698,23 @@ def driver_phase(torch, step, profile=False):
     inp, cfg, ict, icb = step["inp"], step["cfg"], step["ict"], step["icb"]
     mods = step["mods"]
 
+    def alarm(doy, utc, nlit, ncld):
+        """The refresh alarm's device work: the step refresh and RATS."""
+        sol, irr = radiation_refresh(inp, doy, utc, config=cfg, ict=ict,
+                                     icb=icb, sw_nlit=nlit, sw_ncld=ncld,
+                                     **mods)
+        return sol, irr, rats_refresh(inp, doy, cfg, ict, icb,
+                                      lw=mods["lw"])
+
     def refresh(clk):
         validate_inputs(inp)
         nlit, ncld = sw_partition_bounds(inp.lons, inp.lats, inp.fcld,
                                          clk.doy, clk.utc_hours, cfg)
-        sol, irr = radiation_refresh(inp, clk.doy, clk.utc_hours, config=cfg,
-                                     ict=ict, icb=icb, sw_nlit=nlit,
-                                     sw_ncld=ncld, **mods)
-        rats = rats_refresh(inp, clk.doy, cfg, ict, icb, lw=mods["lw"])
-        for name, st in (("SolarState", sol), ("IrradState", irr),
-                         ("RatsState", rats)):
+        states = alarm(clk.doy, clk.utc_hours, nlit, ncld)
+        for name, st in zip(("SolarState", "IrradState", "RatsState"),
+                            states):
             check_finite(st, name)
-        return sol, irr, rats
+        return states
 
     def update(states, doy, utc, ts):
         sol, irr, rats = states
@@ -1560,6 +1780,16 @@ def driver_phase(torch, step, profile=False):
          f"{len(flat)})", len(bad), 0)
     print(f"  radiation_update + rats_update wall per heartbeat: "
           f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms")
+    bounds = sw_partition_bounds(inp.lons, inp.lats, inp.fcld, DOY, UTC, cfg)
+    captured = lambda doy=DOY: alarm(doy, UTC, *bounds)
+    eager_alarm = op_by_op(captured)
+    replay_vs_eager(torch, "refresh alarm (radiation_refresh + "
+                    "rats_refresh)", captured, eager_alarm,
+                    (DOY, DOY + 0.001))
+    sync_free_gate(torch, "refresh alarm replayed", captured)
+    sync_free_gate(torch, "refresh alarm eager", eager_alarm)
+    route_times(torch, "refresh alarm (radiation_refresh + rats_refresh)",
+                captured, eager_alarm, 5)
     if profile:
         device_profile(torch, "heartbeat update",
                        lambda: update(states, DOY, UTC, inp.tsinst), 5,
@@ -2095,17 +2325,17 @@ def profile_phase(torch, step, nwall=30, nprof=5):
                       torch.zeros_like(slr))
     play = rad._common_derived(inp)[0]
     stages = dict(
-        solar_refresh=lambda: rad.solar_refresh(
+        solar_refresh=op_by_op(lambda: rad.solar_refresh(
             inp, zth, DOY, cfg, step["ict"], step["icb"], nlit=nlit,
-            ncld=step["ncld"], sw=step["mods"]["sw"]),
-        irrad_refresh=lambda: rad.irrad_refresh(
-            inp, DOY, cfg, step["ict"], step["icb"], lw=step["mods"]["lw"]),
+            ncld=step["ncld"], sw=step["mods"]["sw"])),
+        irrad_refresh=op_by_op(lambda: rad.irrad_refresh(
+            inp, DOY, cfg, step["ict"], step["icb"], lw=step["mods"]["lw"])),
         subcolumn_keys_lw_off_kernel_path=lambda: mcica.subcolumn_keys(play),
         subcolumn_keys_sw_off_kernel_path=lambda: mcica.subcolumn_keys(
             play[:nlit], SEED_ORDER_SW))
     for name, fn in stages.items():
-        print(f"  {name} alone: {time_ms(torch, fn, 10):.3f} ms (CUDA "
-              f"events, mean of 10)")
+        print(f"  {name} alone, op by op: {time_ms(torch, fn, 10):.3f} ms "
+              f"(CUDA events, mean of 10)")
 
 
 def off_kernel_path_calls(run):

@@ -1,9 +1,11 @@
-"""The counterpart of jax.jit for the step's entry points: CUDA graphs.
+"""The counterpart of jax.jit for the port's entry points: CUDA graphs.
 
-The reference wraps radiation_refresh and radiation_update in jax.jit
-with static arguments (geosradiation_gridcomp_tpu/driver/step.py:20-22,
-59): each static key is traced and compiled once, and every later call
-copies in its traced arguments and dispatches one program. Here
+The reference wraps its entry points in jax.jit with static arguments:
+the step's radiation_refresh and radiation_update
+(geosradiation_gridcomp_tpu/driver/step.py:20-22, 59) and the schemes'
+rrtmg_lw / rrtmg_sw, chou_sw / chou_lw and rrtmgp_sw / rrtmgp_lw. Each
+static key is traced and compiled once, and every later call copies in
+its traced arguments and dispatches one program. Here
 `captured(body, static_argnames=...)` does the same on a card:
 
 - the key is the static arguments' values (`config` is a frozen
@@ -27,16 +29,26 @@ A route function decides from the bound arguments whether a call takes
 the graph at all (CPU tensors and the plain twins run the body eagerly,
 as the caller asked) and may complete them (the refresh fills in its
 table modules). A capture that fails raises; nothing falls back to the
-eager body.
+eager body. Every static value must hash.
+
+Nesting: a jit called inside another jit traces into its caller, and so
+here a captured entry called while another entry's body warms up or is
+captured runs its own body and records no graph (the refresh's graph
+then holds rrtmg_lw's kernels, and rrtmg_lw keeps no graph of its own).
+`disable_capture()` makes every entry called inside it run its body
+(jax.disable_jit's counterpart): what records the kernel wrappers'
+calls must run under it, since a replay calls no Python wrapper.
 
 kernels.build.LAUNCHES counts each kernel once per call on either route:
 the wrapper calls made during the warm-up and the capture are taken back
 out, and each replay adds what its capture recorded.
 """
 
+import contextlib
 import functools
 import inspect
 import numbers
+import threading
 
 import torch
 
@@ -45,6 +57,27 @@ from ..parallel.sharding import tree_map
 
 # the structure of a traced leaf
 TENSOR, SCALAR = "tensor", "scalar"
+
+# how many bodies of captured entries are being warmed up or captured
+# (or disable_capture blocks entered) on this thread
+_NESTING = threading.local()
+
+
+def _depth():
+    return getattr(_NESTING, "depth", 0)
+
+
+@contextlib.contextmanager
+def disable_capture():
+    """Within the block every captured entry runs its body eagerly and
+    records no graph (jax.disable_jit's counterpart). The warm-up and the
+    capture of a body run under it, so nested entries trace into their
+    caller."""
+    _NESTING.depth = _depth() + 1
+    try:
+        yield
+    finally:
+        _NESTING.depth -= 1
 
 
 def _is_scalar(x):
@@ -150,13 +183,14 @@ class _Graph:
             current = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
             side.wait_stream(current)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), disable_capture():
                 body(*bound.args, **bound.kwargs)
             current.wait_stream(side)
             warm = dict(LAUNCHES)
             pool, stream = graph_pool(device)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream), \
+                    disable_capture():
                 self.out = body(*bound.args, **bound.kwargs)
             self.launches = {k: n - warm.get(k, 0)
                              for k, n in LAUNCHES.items()
@@ -190,6 +224,12 @@ def on_card(arguments, device):
         else None
 
 
+def with_kernels(arguments, device):
+    """The route of the entries with a plain switch: capture on a card
+    unless plain (the plain twins are what the kernels are held to)."""
+    return None if arguments["plain"] else on_card(arguments, device)
+
+
 class Captured:
     """body as a captured entry: see the module docstring.
 
@@ -205,6 +245,7 @@ class Captured:
         self.signature = inspect.signature(body)
         self.graphs = {}
         functools.update_wrapper(self, body)
+        self.__name__ = body.__name__.removesuffix("_eager")
 
     def traced(self, arguments):
         return {n: v for n, v in arguments.items()
@@ -214,11 +255,21 @@ class Captured:
         """The cache key of a call's arguments (bound, defaults applied):
         the static values and the traced arguments' structures."""
         static = tuple((n, arguments[n]) for n in self.static_argnames)
+        for name, value in static:
+            try:
+                hash(value)
+            except TypeError:
+                raise TypeError(
+                    f"{self.__name__}: the static argument {name} must "
+                    f"hash, not {type(value).__name__} (pass a tuple)"
+                ) from None
         leaves = []
         return static, tuple((n, flatten(v, leaves))
                              for n, v in self.traced(arguments).items())
 
     def __call__(self, *args, **kwargs):
+        if _depth():
+            return self.body(*args, **kwargs)
         bound = self.signature.bind(*args, **kwargs)
         bound.apply_defaults()
         traced = self.traced(bound.arguments)

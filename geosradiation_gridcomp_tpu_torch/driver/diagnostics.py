@@ -9,12 +9,12 @@ Port of geosradiation_gridcomp_tpu/driver/diagnostics.py:
     exported and advanced between refreshes like the main fluxes.
 """
 
-import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..tables import on_device
 from .state import RatsState
 
 # RRTMG LW band bounds [cm^-1] (rrlw_wvn wavenum1/2)
@@ -51,19 +51,13 @@ def invert_planck_for_t(b_wn, wn):
 
 def _band_midpoints(wavenum1, wavenum2, device, dtype):
     """Mid-point wavenumbers and widths [m^-1] of bands given in cm^-1,
-    as tensors on device."""
+    as tensors on device (copied from the host once per value, device
+    and dtype: a copy in every heartbeat's update would synchronise the
+    stream)."""
     wn1 = np.asarray(wavenum1) * 100.0
     wn2 = np.asarray(wavenum2) * 100.0
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return t(0.5 * (wn1 + wn2)), t(wn2 - wn1)
-
-
-@functools.lru_cache(maxsize=None)
-def _rrtmg_band_midpoints(device, dtype):
-    """_band_midpoints of the RRTMG LW bands, copied from the host once per
-    device and dtype: a copy from host memory in every heartbeat's update
-    would synchronise the stream."""
-    return _band_midpoints(LW_WAVENUM1, LW_WAVENUM2, device, dtype)
+    return (on_device(0.5 * (wn1 + wn2), device, dtype),
+            on_device(wn2 - wn1, device, dtype))
 
 
 def band_brightness_temperature(olrb, wavenum1=None, wavenum2=None):
@@ -73,13 +67,10 @@ def band_brightness_temperature(olrb, wavenum1=None, wavenum2=None):
 
     olrb: [..., nband]; returns the same shape [K].
     """
-    if wavenum1 is None and wavenum2 is None:
-        wn_mid, dwn = _rrtmg_band_midpoints(olrb.device, olrb.dtype)
-    else:
-        wn_mid, dwn = _band_midpoints(
-            LW_WAVENUM1 if wavenum1 is None else wavenum1,
-            LW_WAVENUM2 if wavenum2 is None else wavenum2, olrb.device,
-            olrb.dtype)
+    wn_mid, dwn = _band_midpoints(
+        LW_WAVENUM1 if wavenum1 is None else wavenum1,
+        LW_WAVENUM2 if wavenum2 is None else wavenum2, olrb.device,
+        olrb.dtype)
     bmean = torch.clamp(olrb, min=1e-30) / (np.pi * dwn)
     tbr = invert_planck_for_t(bmean, wn_mid)
     return torch.where(olrb > 0.0, tbr, torch.full_like(tbr, UNDEF))
@@ -91,21 +82,22 @@ def rats_refresh(inp, doy, config, ict, icb, taua=None,
     """LW internals with each trace gas zeroed in turn (the RATS loop,
     GEOS_IrradGridComp.F90:3405-3468); each entry costs one full LW solve.
 
-    lw: the RRTMGLW holding the tables, built once here on the inputs'
-    device when None and the scheme is RRTMG, and shared by every solve.
+    lw: the RRTMGLW holding the tables, the per-device reference module
+    (radiation.reference_modules) when None and the scheme is RRTMG, and
+    shared by every solve: on a card the 8 solves then replay one
+    rrtmg_lw graph, the zeroed gas copied in.
     plain=True runs the kernels' plain PyTorch twins (see irrad_refresh).
 
     Returns RatsState with leading gas axis ordered as `gases`.
     """
     from ..config import Scheme
-    from ..models.rrtmg.lw import RRTMGLW
-    from .radiation import irrad_refresh
+    from .radiation import irrad_refresh, reference_modules
 
     for gas in gases:
         if gas not in RATS_GASES:
             raise ValueError(f"unknown RATS gas {gas!r}")
     if lw is None and config.lw_scheme == Scheme.RRTMG:
-        lw = RRTMGLW.from_reference_tables(inp.t.device)
+        lw = reference_modules(inp.t.device)[1]
     states = []
     for gas in gases:
         field = _RATS_FIELDS[gas]

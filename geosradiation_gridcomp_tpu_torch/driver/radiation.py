@@ -11,6 +11,7 @@ AtmosInputs carries the SOLAR/IRRAD import fields as column batches of
 torch tensors, TOA-first.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -64,6 +65,16 @@ class AtmosInputs(NamedTuple):
     lons: torch.Tensor       # [ncol] radians
 
 
+@functools.lru_cache(maxsize=None)
+def reference_modules(device):
+    """RRTMG's SW and LW table modules on device, built once: the
+    counterpart of jit baking the tables into the executable. Every
+    refresh that is given no module takes these, so that the scheme
+    entries see one static module per device."""
+    return (RRTMGSW.from_reference_tables(device),
+            RRTMGLW.from_reference_tables(device))
+
+
 def _undef_like(x):
     return torch.full_like(x, UNDEF)
 
@@ -114,14 +125,15 @@ def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
     With aerosols present and "no_aerosol" in config.outputs, a second
     aerosol-free pass fills the no-aerosol internals; without aerosols
     they alias the all-sky ones, as in the reference. sw: the RRTMGSW
-    holding the tables (built on the inputs' device when None and the
-    scheme is RRTMG or RRTMGP, whose facade and cloud optics use them).
+    holding the tables (reference_modules of the inputs' device when None
+    and the scheme is RRTMG or RRTMGP, whose facade and cloud optics use
+    them).
     plain=True runs the kernels' plain PyTorch twins (see rrtmg_sw and
     rrtmgp_sw); the Chou-Suarez scheme and RRTMGP's native engine have no
     kernel.
     """
     if sw is None and config.sw_scheme in (Scheme.RRTMG, Scheme.RRTMGP):
-        sw = RRTMGSW.from_reference_tables(inp.t.device)
+        sw = reference_modules(inp.t.device)[0]
     st = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa,
                              asya, nlit, ncld, sw, plain)
     if taua is None:
@@ -273,15 +285,15 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
     taua/ssaa/asya: LW aerosol optics; Chou-Suarez takes all three
     [ncol, nlay, 10], RRTMG-LW (absorption-only) taua alone
     [ncol, nlay, 16]; RRTMGP takes none. lw: the RRTMGLW holding the
-    tables (built from the reference tables on the inputs' device when
-    None). plain=True runs the kernels' plain PyTorch twins on any device
-    (see rrtmg_lw and rrtmgp_lw); the Chou-Suarez scheme and RRTMGP's
-    native engine have no kernel.
+    tables (reference_modules of the inputs' device when None).
+    plain=True runs the kernels' plain PyTorch twins on any device (see
+    rrtmg_lw and rrtmgp_lw); the Chou-Suarez scheme and RRTMGP's native
+    engine have no kernel.
     """
     if config.lw_scheme == Scheme.CHOU:
         return _chou_irrad_refresh(inp, config, ict, icb, taua, ssaa, asya)
     if lw is None:
-        lw = RRTMGLW.from_reference_tables(inp.t.device)
+        lw = reference_modules(inp.t.device)[1]
     if config.lw_scheme == Scheme.RRTMGP:
         return _rrtmgp_irrad_refresh(inp, doy, config, lw, plain)
     play, h2ovmr, o3vmr = _common_derived(inp)

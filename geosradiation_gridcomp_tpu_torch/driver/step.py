@@ -13,35 +13,34 @@ bodies as captured entries (driver/compiled.py): on a card each static
 key is captured once as a CUDA graph and every later call replays it.
 The refresh's static arguments are the reference's (config, ict, icb,
 sw_nlit, sw_ncld) plus the table modules sw and lw and plain; the
-update's is config. CPU tensors and plain=True run the body eagerly. The
-refresh is captured where both schemes are RRTMG: the Chou-Suarez and
-RRTMGP refreshes stay on the eager body, decided from config alone,
-because they copy from host memory on every call (their table lookups,
-and RRTMGP's McICA random stream is drawn on the host); the update is
-captured under every config.
+update's is config. CPU tensors and plain=True run the body eagerly.
+Both are captured under every config: every scheme pair of Chou-Suarez,
+RRTMG and RRTMGP (the facade or, with config.rrtmgp_kdist_sw / _lw, the
+native engine), whose bodies copy nothing from host memory and read no
+device value. The scheme entries the refresh calls (rrtmg_sw / rrtmg_lw,
+chou_sw / chou_lw, rrtmgp_sw / rrtmgp_lw) are captured entries too;
+inside the refresh's capture they run their bodies, so the refresh's
+graph holds their kernels and they record no graph of their own.
 """
-
-import functools
 
 import numpy as np
 import torch
 
-from ..config import Scheme
-from ..models.rrtmg.lw import RRTMGLW
-from ..models.rrtmg.sw import RRTMGSW
 from .astronomy import mean_cos_zenith
-from .compiled import captured, on_card
+from .compiled import captured, with_kernels
 from .radiation import (AtmosInputs, heating_rates, irrad_refresh,
-                        irrad_update, solar_refresh, solar_update,
-                        surface_lw_linearization)
+                        irrad_update, reference_modules, solar_refresh,
+                        solar_update, surface_lw_linearization)
 
 
 def radiation_refresh_eager(inp: AtmosInputs, doy, utc_hours, *, config,
                             ict, icb, sw_aero=None, lw_aero=None,
                             sw_nlit=None, sw_ncld=None, sw=None, lw=None,
                             plain=False):
-    """Full SW+LW refresh, run op by op. Returns (solar_state,
-    irrad_state).
+    """Full SW+LW refresh, the body of radiation_refresh. Returns
+    (solar_state, irrad_state). Called on its own on a card, the scheme
+    entries it reaches replay their own graphs; under
+    compiled.disable_capture() it runs op by op.
 
     doy, utc_hours: Python numbers or 0-d float32 tensors.
     sw_aero: optional (taua, ssaa, asya) per-SW-band aerosol optics
@@ -50,9 +49,9 @@ def radiation_refresh_eager(inp: AtmosInputs, doy, utc_hours, *, config,
     alone; RRTMG-LW (16 bands, absorption-only) uses taua alone.
     sw_nlit / sw_ncld: optional SW daylight-packing bounds
     (sw_partition_bounds below).
-    sw / lw: the RRTMGSW / RRTMGLW modules holding the tables (built on the
-    inputs' device when None). plain=True runs the kernels' plain PyTorch
-    twins.
+    sw / lw: the RRTMGSW / RRTMGLW modules holding the tables
+    (radiation.reference_modules of the inputs' device when None).
+    plain=True runs the kernels' plain PyTorch twins.
     """
     slr, lit = mean_cos_zenith(inp.lons, inp.lats, doy, utc_hours,
                                config.solar_dt / 3600.0)
@@ -86,21 +85,12 @@ def radiation_update_eager(solar_state, irrad_state, tsinst, lons, lats, ple,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def reference_modules(device):
-    """RRTMG's SW and LW table modules on device, built once: the captured
-    refresh's counterpart of jit baking the tables into the executable."""
-    return (RRTMGSW.from_reference_tables(device),
-            RRTMGLW.from_reference_tables(device))
-
-
 def _refresh_route(arguments, device):
-    """The captured refresh's route: RRTMG SW and LW on a card, the
-    kernels (not plain), the table modules filled in when not given."""
-    config = arguments["config"]
-    if on_card(arguments, device) is None or arguments["plain"] \
-            or config.sw_scheme != Scheme.RRTMG \
-            or config.lw_scheme != Scheme.RRTMG:
+    """The captured refresh's route: on a card with the kernels (not
+    plain), under every scheme pair (Chou-Suarez, RRTMG, RRTMGP, its
+    native engine too: the coefficient paths are fields of the static
+    config), the table modules filled in when not given."""
+    if with_kernels(arguments, device) is None:
         return None
     missing = [k for k in ("sw", "lw") if arguments[k] is None]
     if missing:
@@ -116,7 +106,7 @@ radiation_refresh = captured(
     route=_refresh_route)
 radiation_refresh.__doc__ = """Full SW+LW refresh (radiation_refresh_eager's
 arguments and results), as a CUDA graph captured once per static key on a
-card where both schemes are RRTMG; eagerly otherwise."""
+card under every scheme pair; eagerly for CPU tensors and plain=True."""
 
 radiation_update = captured(radiation_update_eager,
                             static_argnames=("config",))

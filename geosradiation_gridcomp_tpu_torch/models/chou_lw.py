@@ -23,13 +23,19 @@ independent) so that the band's pair planes fit on the card at full width.
 
 Fluxes keep the reference sign convention: downward positive, upward
 negative. Outputs are W/m^2 at the np+1 model levels (TOA..surface).
+
+The reference jits chou_lw (:547): here its body is `chou_lw_eager` and
+`chou_lw` that body as a captured entry (driver/compiled.py), one CUDA
+graph per static key on a card; its tables go to the device once per
+device and dtype (tables.on_device).
 """
 
 import torch
 
 from ..constants import DIFFUSIVITY
 from ..ops.chou_optics import getirtau
-from ..tables import load
+from ..driver.compiled import captured
+from ..tables import load, on_device
 
 # CFC temperature-scaling/absorption parameters (irrad.F90:739-770, Table 7)
 _CFC_PARAMS = {
@@ -112,7 +118,7 @@ def _tablup(s1, s2, s3, c1, c2, c3, w1, p1, dwe, dpe):
     c1/c2/c3: (nx, nh) tables. Returns transmittance factor in [1e-7, ~1].
     """
     nx, nh = c1.shape
-    tabs = [torch.as_tensor(c, dtype=s1.dtype, device=s1.device).reshape(-1)
+    tabs = [on_device(c, s1.device, s1.dtype).reshape(-1)
             for c in (c1, c2, c3)]
     s1c = torch.clamp(s1, min=1e-30)
     x2 = s2 / s1c
@@ -206,8 +212,8 @@ def _chou_lw_columns(ple, ta, wa, oa, tb, ts, emis, co2, n2o, ch4,
     dtype, dev = ta.dtype, ta.device
     ncol, np_ = ta.shape
     t = load("chou_irrad_constants")
-    cb = torch.as_tensor(t["cb"], dtype=dtype, device=dev)
-    dcb = torch.as_tensor(t["dcb"], dtype=dtype, device=dev)
+    cb = on_device(t["cb"], dev, dtype)
+    dcb = on_device(t["dcb"], dev, dtype)
     xkw = t["xkw"]
     xke = t["xke"]
     mw = t["mw"]
@@ -547,11 +553,11 @@ def _chou_lw_columns(ple, ta, wa, oa, tb, ts, emis, co2, n2o, ch4,
         sfcem=sfcem)
 
 
-def chou_lw(ple, ta, wa, oa, tb, ts, emis, co2, n2o, ch4,
-            cfc11, cfc12, cfc22, cwc, fcld, reff,
-            taua=None, ssaa=None, asya=None, *,
-            ict, icb, trace=True, with_aerosol=False):
-    """Batched Chou-Suarez LW fluxes.
+def chou_lw_eager(ple, ta, wa, oa, tb, ts, emis, co2, n2o, ch4,
+                  cfc11, cfc12, cfc22, cwc, fcld, reff,
+                  taua=None, ssaa=None, asya=None, *,
+                  ict, icb, trace=True, with_aerosol=False):
+    """Batched Chou-Suarez LW fluxes, run op by op.
 
     Args:
       ple:   [ncol, np+1] level pressure (Pa), TOA..surface
@@ -591,3 +597,11 @@ def chou_lw(ple, ta, wa, oa, tb, ts, emis, co2, n2o, ch4,
     if len(parts) == 1:
         return parts[0]
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+chou_lw = captured(chou_lw_eager,
+                   static_argnames=("ict", "icb", "trace", "with_aerosol"))
+chou_lw.__doc__ = """Batched Chou-Suarez LW fluxes (chou_lw_eager's
+arguments and results), as a CUDA graph captured once per static key on
+a card (the reference's static argnames, models/chou_lw.py:547); CPU
+tensors run the body eagerly."""

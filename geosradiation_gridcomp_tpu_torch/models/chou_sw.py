@@ -17,6 +17,11 @@ column batch first:
 
 Outputs are normalized: fractions of the TOA insolation (multiply by
 cosz * solar_constant for W/m^2), as in the reference.
+
+The reference jits chou_sw (:333): here its body is `chou_sw_eager` and
+`chou_sw` that body as a captured entry (driver/compiled.py), one CUDA
+graph per static key on a card; its tables go to the device once per
+device and dtype (tables.on_device).
 """
 
 import numpy as np
@@ -24,7 +29,8 @@ import torch
 
 from ..ops.chou_optics import getnirtau, getvistau, superlayer_cc
 from ..ops.twostream import deledd
-from ..tables import load
+from ..driver.compiled import captured
+from ..tables import load, on_device
 
 _DSM = 0.602                       # cos(53 deg): diffuse-as-beam angle
 _NS = 35                           # 5 UV + 3*10 NIR spectral points
@@ -88,11 +94,12 @@ def _cumsum0(x):
                       torch.cumsum(x, dim=-1)], dim=-1)
 
 
-def chou_sw(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
-            taua=None, ssaa=None, asya=None,
-            rsuvbm=None, rsuvdf=None, rsirbm=None, rsirdf=None,
-            hk_uv=None, hk_ir=None, *, ict, icb):
-    """Batched Chou-Suarez SW fluxes (normalized by TOA insolation).
+def chou_sw_eager(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
+                  taua=None, ssaa=None, asya=None,
+                  rsuvbm=None, rsuvdf=None, rsirbm=None, rsirdf=None,
+                  hk_uv=None, hk_ir=None, *, ict, icb):
+    """Batched Chou-Suarez SW fluxes (normalized by TOA insolation), run
+    op by op.
 
     Args:
       cosz: [ncol] cosine solar zenith angle
@@ -103,7 +110,8 @@ def chou_sw(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
       cwc/reff: [ncol, np, 4]; fcld: [ncol, np]
       taua/ssaa/asya: [ncol, np, 8] aerosol optics per band
       rsuvbm/rsuvdf/rsirbm/rsirdf: [ncol] surface albedos
-      hk_uv [5], hk_ir [3, 10]: band spectral weights (default: hk_*_old)
+      hk_uv [5], hk_ir [3, 10]: band spectral weights (default: hk_*_old,
+            on the device once per device and dtype)
       ict/icb: super-layer boundary level indices (1-based)
 
     Returns dict with flx/flc (net down), flxu/flcu (diffuse up), surface
@@ -114,7 +122,7 @@ def chou_sw(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
     dtype, dev = ta.dtype, ta.device
 
     def const(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        return on_device(x, dev, dtype)
 
     if taua is None:
         taua = torch.zeros((ncol, np_, 8), dtype=dtype, device=dev)
@@ -126,7 +134,7 @@ def chou_sw(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
     rsirbm = zeros if rsirbm is None else rsirbm
     rsirdf = zeros if rsirdf is None else rsirdf
     if hk_uv is None:
-        hk_uv, hk_ir = default_hk()
+        hk_uv, hk_ir = (const(x) for x in default_hk())
     hk_s = torch.cat([torch.as_tensor(hk_uv, dtype=dtype, device=dev)
                       .expand(ncol, 5),
                       torch.as_tensor(hk_ir, dtype=dtype, device=dev)
@@ -166,8 +174,8 @@ def chou_sw(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
     zk_c = const(zk_s)
     ry_c = const(ry_s)[:, None]
     eps_c = const(eps_s)[:, None]
-    optidx = torch.as_tensor(optidx_s, device=dev)
-    band = torch.as_tensor(band_s, device=dev)
+    optidx = on_device(optidx_s, dev)
+    band = on_device(band_s, dev)
 
     tauclb = tauclb_os[:, optidx]         # [ncol, ns, np]
     tauclf = tauclf_os[:, optidx]
@@ -362,3 +370,11 @@ def chou_sw(cosz, ple, ta, wa, oa, co2, cwc, fcld, reff,
         fdirir=fdirir * scale, fdifir=fdifir * scale,
         flx_sfc_band=flx_sfc_band * sc,
         drband=drband * sc, dfband=dfband * sc)
+
+
+chou_sw = captured(chou_sw_eager, static_argnames=("ict", "icb"))
+chou_sw.__doc__ = """Batched Chou-Suarez SW fluxes (chou_sw_eager's
+arguments and results), as a CUDA graph captured once per static key on
+a card (the reference's static argnames, models/chou_sw.py:333; hk_uv /
+hk_ir, when given, are traced tensors); CPU tensors run the body
+eagerly."""

@@ -11,12 +11,11 @@ a dict with absice0 (2,), absice1 (2, 5), absice2/3/4 (n, 16) and
 absliq1 (58, 16).
 """
 
-import functools
 
 import numpy as np
 import torch
 
-from ...tables import load
+from ...tables import load, on_device
 from .tables_lw import NG_LW
 
 # band -> 5-band index for iceflag==1 (rrlw_cld.F90:21-22)
@@ -26,13 +25,6 @@ NGB = np.repeat(np.arange(16), NG_LW)
 
 CLOUD_TABLE_KEYS = ("absice0", "absice1", "absice2", "absice3", "absice4",
                     "absliq1")
-
-
-@functools.lru_cache(maxsize=None)
-def _ice1_bands(device):
-    """_ICE1B on device, copied from the host once per device: a copy from
-    host memory in every call would synchronise the stream."""
-    return torch.as_tensor(_ICE1B, device=device)
 
 
 def lw_cloud_tables(device="cuda"):
@@ -60,7 +52,7 @@ def band_abs_coeffs_lw(reice, reliq, tables, iceflag=3, liqflag=1):
             .expand(reice.shape + (16,))
     elif iceflag == 1:
         a = tables["absice1"]
-        ice1b = _ice1_bands(reice.device)
+        ice1b = on_device(_ICE1B, reice.device)
         absice = a[0][ice1b] + a[1][ice1b] \
             / torch.clamp(reice, min=1e-6)[..., None]
     else:

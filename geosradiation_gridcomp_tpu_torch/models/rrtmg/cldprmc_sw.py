@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...tables import load
+from ...tables import load, on_device
 from .tables_sw import NG_SW
 
 # g-point -> 0-based band
@@ -155,7 +155,7 @@ def cldprmc_from_band_coeffs_sw(cldymc, ciwpmc, clwpmc, coeffs,
     g-points; np.arange(14) evaluates one point per band).
     Returns (taucmc, ssacmc, asmcmc, taormc), each [..., ngpt, nlay].
     """
-    band_g = torch.as_tensor(band_g, device=ciwpmc.device)
+    band_g = on_device(band_g, ciwpmc.device)
     (extcoice, ssacoice, gice, forwice,
      extcoliq, ssacoliq, gliq, forwliq) = (
         x[..., band_g].transpose(-1, -2) for x in coeffs)

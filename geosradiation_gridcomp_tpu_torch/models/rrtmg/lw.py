@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...constants import AMD, GRAV, RGAS
+from ...driver.compiled import captured, with_kernels
 from ...ops.mcica import _sigma_class, overlap_params, zcw_class_columns
 from ...ops.mcica_cuda import mcica_optics_lw, mcica_optics_lw_plain
 from .cldprmc_lw import CLOUD_TABLE_KEYS, band_abs_coeffs_lw, lw_cloud_tables
@@ -125,13 +126,13 @@ def reference_buffers(device="cuda"):
             lw_planck_tables(device), lw_cloud_tables(device), zcw)
 
 
-def rrtmg_lw(lw, ple, play, tlay, tlev, tsfc, emis,
-             h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, covmr,
-             cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr,
-             cldf, ciwp, clwp, rei, rel, zm, alat, doy,
-             taua=None, *, iceflag=3, liqflag=1, dudts=True,
-             cloud_mh=1, cloud_lm=2, inhm=1, plain=False):
-    """RRTMG LW all-sky fluxes with McICA clouds.
+def rrtmg_lw_eager(lw, ple, play, tlay, tlev, tsfc, emis,
+                   h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, covmr,
+                   cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr,
+                   cldf, ciwp, clwp, rei, rel, zm, alat, doy,
+                   taua=None, *, iceflag=3, liqflag=1, dudts=True,
+                   cloud_mh=1, cloud_lm=2, inhm=1, plain=False):
+    """RRTMG LW all-sky fluxes with McICA clouds, run op by op.
 
     lw: an RRTMGLW holding the tables. Args (all TOA-first):
       ple [ncol, nlay+1] level pressure (Pa); play [ncol, nlay] (hPa);
@@ -171,3 +172,15 @@ def rrtmg_lw(lw, ple, play, tlay, tlev, tsfc, emis,
     out["clear_counts"] = counts
     return out
 
+
+
+rrtmg_lw = captured(
+    rrtmg_lw_eager,
+    static_argnames=("lw", "iceflag", "liqflag", "dudts", "cloud_mh",
+                     "cloud_lm", "inhm", "plain"),
+    route=with_kernels)
+rrtmg_lw.__doc__ = """RRTMG LW all-sky fluxes with McICA clouds
+(rrtmg_lw_eager's arguments and results), as a CUDA graph captured once
+per static key on a card: the reference's static argnames, the table
+module lw (by identity) and plain; doy and the tensors are traced. CPU
+tensors and plain=True run the body eagerly."""

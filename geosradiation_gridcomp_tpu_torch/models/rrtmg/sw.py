@@ -7,17 +7,21 @@ solar source -> taumol (K5) -> spcvmc two-stream and adding (K6) -> night
 zeros and scatter-back. Each kernel wrapper runs its plain twin for CPU
 tensors and its CUDA kernel for CUDA tensors.
 
+The reference jits rrtmg_sw (models/rrtmg/sw.py:36): here its body is
+`rrtmg_sw_eager` and `rrtmg_sw` that body as a captured entry
+(driver/compiled.py), one CUDA graph per static key on a card.
+
 All inputs TOA-first. Water paths are IN-CLOUD values in g/m^2.
 """
-
-import functools
 
 import numpy as np
 import torch
 from torch import nn
 
+from ...driver.compiled import captured, with_kernels
 from ...ops.mcica import _sigma_class, overlap_params, zcw_class_columns
 from ...ops.mcica_cuda import mcica_optics_sw, mcica_optics_sw_plain
+from ...tables import on_device
 from .cldprmc_sw import (CLOUD_TABLE_KEYS, ICE_TABLE_KEYS, CloudPackSW,
                          pack_cloud_tables_sw, sw_cloud_tables)
 from .nrlssi2 import solar_source_weights
@@ -35,12 +39,6 @@ SEED_ORDER_SW = (3, 2, 1, 0)
 # bands 10-13 (1-based) take the UV/vis albedos, the others the NIR ones
 _UVBAND = (np.arange(1, 15) >= 10) & (np.arange(1, 15) <= 13)
 
-
-@functools.lru_cache(maxsize=None)
-def uv_bands(device):
-    """_UVBAND on device, copied from the host once per device: a copy
-    from host memory in every call would synchronise the stream."""
-    return torch.as_tensor(_UVBAND, device=device)
 
 
 class RRTMGSW(nn.Module):
@@ -122,14 +120,14 @@ class RRTMGSW(nn.Module):
         return rrtmg_sw(self, *args, **kwargs)
 
 
-def rrtmg_sw(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
-             albdir_nir, albdif_nir, h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr,
-             cldf, ciwp, clwp, rei, rel, zm, alat, doy,
-             taua=None, ssaa=None, asya=None, adjes=1.0, *, scon=1361.0,
-             isolvar=-1, solcycfrac=None, indsolvar=None, bndscl=None,
-             iceflag=3, liqflag=1, cloud_mh=1, cloud_lm=2, inhm=1,
-             nlit=None, ncld=None, plain=False):
-    """RRTMG SW fluxes with McICA clouds.
+def rrtmg_sw_eager(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
+                   albdir_nir, albdif_nir, h2ovmr, o3vmr, co2vmr, ch4vmr,
+                   o2vmr, cldf, ciwp, clwp, rei, rel, zm, alat, doy,
+                   taua=None, ssaa=None, asya=None, adjes=1.0, *,
+                   scon=1361.0, isolvar=-1, solcycfrac=None, indsolvar=None,
+                   bndscl=None, iceflag=3, liqflag=1, cloud_mh=1, cloud_lm=2,
+                   inhm=1, nlit=None, ncld=None, plain=False):
+    """RRTMG SW fluxes with McICA clouds, run op by op.
 
     sw: an RRTMGSW holding the tables. Args (TOA-first):
       ple [ncol, nlay+1] Pa; play [ncol, nlay] hPa; tlay [K];
@@ -195,7 +193,7 @@ def rrtmg_sw(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
         coefs, sw.taumol_tables)
     sfluxzen = sfluxzen_only(coefs, sw.solar_sources(svw))
 
-    uv = uv_bands(cldf.device)
+    uv = on_device(_UVBAND, cldf.device)
     albdir = torch.where(uv, albdir_uv[:, None], albdir_nir[:, None])
     albdif = torch.where(uv, albdif_uv[:, None], albdif_nir[:, None])
 
@@ -220,3 +218,38 @@ def rrtmg_sw(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
     elif sort_clear:
         out = {k: v[inv] for k, v in out.items()}
     return out
+
+
+def _static_weights(value, name):
+    """An NRLSSI2 index pair or band scaling (indsolvar, bndscl) as a
+    tuple of floats, so that it hashes as a static argument."""
+    if value is None or isinstance(value, tuple):
+        return value
+    if isinstance(value, torch.Tensor):
+        raise TypeError(f"rrtmg_sw: {name} is static; pass a tuple or a "
+                        f"numpy array, not a tensor")
+    return tuple(np.asarray(value, np.float64).reshape(-1).tolist())
+
+
+def _sw_route(arguments, device):
+    """rrtmg_sw's route: capture on a card unless plain, with indsolvar
+    and bndscl made tuples."""
+    if with_kernels(arguments, device) is None:
+        return None
+    return {**arguments,
+            **{k: _static_weights(arguments[k], k)
+               for k in ("indsolvar", "bndscl")}}
+
+
+rrtmg_sw = captured(
+    rrtmg_sw_eager,
+    static_argnames=("sw", "scon", "isolvar", "solcycfrac", "indsolvar",
+                     "bndscl", "iceflag", "liqflag", "cloud_mh", "cloud_lm",
+                     "inhm", "nlit", "ncld", "plain"),
+    route=_sw_route)
+rrtmg_sw.__doc__ = """RRTMG SW fluxes with McICA clouds (rrtmg_sw_eager's
+arguments and results), as a CUDA graph captured once per static key on
+a card: the reference's static argnames (an array-valued indsolvar or
+bndscl is taken as a tuple), the table module sw (by identity) and
+plain; doy, adjes and the tensors are traced. CPU tensors and plain=True
+run the body eagerly."""

@@ -13,7 +13,10 @@ Each g-point group is interpolated on its own g-points only.
 
 Data (load_kdist_npz in kdist.py): the schema below, the coefficient
 tables (kmajor, planck_frac, totplnk, rayl, solar_src, kminor) as
-float32 tensors on the device, the metadata as numpy.
+float32 tensors on the device, the metadata as numpy; the index arrays
+and ratios derived from the metadata go to the device once per value
+and device (tables.on_device), so a call copies nothing from host
+memory.
 
 Schema (0-based gas indices; gas 0 == dry air):
   press_ref [npress] Pa descending; temp_ref [ntemp] K ascending
@@ -36,6 +39,8 @@ Schema (0-based gas indices; gas 0 == dry air):
 
 import numpy as np
 import torch
+
+from ...tables import on_device
 
 PA2HPA = 0.01
 M_DRY = 0.028964
@@ -103,12 +108,12 @@ class InterpState:
             g1, g2 = int(flavor[fl, 0]), int(flavor[fl, 1])
             # ratio of reference vmrs at the bracketing temps,
             # tropo-dependent
-            r_low = torch.as_tensor(
+            r_low = on_device(
                 vmr_ref[0, g1] / np.maximum(vmr_ref[0, g2], 1e-60),
-                dtype=tlay.dtype, device=tlay.device)
-            r_upp = torch.as_tensor(
+                tlay.device, tlay.dtype)
+            r_upp = on_device(
                 vmr_ref[1, g1] / np.maximum(vmr_ref[1, g2], 1e-60),
-                dtype=tlay.dtype, device=tlay.device)
+                tlay.device, tlay.dtype)
             jeta_t, feta_t, cmix_t = [], [], []
             for dt in range(2):
                 j = torch.clamp(self.jtemp + dt, 0, ntemp - 1).long()
@@ -155,7 +160,7 @@ def _interp3(st, tab, gs, fl_low, fl_upp, with_cmix):
     layer; with_cmix scales by the flavor's column mix (tau_major) or not
     (planck fractions). Returns [ncol, nlay, len(gs)]."""
     ntemp, neta, npp, _ = tab.shape
-    gsel = torch.as_tensor(gs, device=tab.device)
+    gsel = on_device(gs, tab.device)
     flat = tab.reshape(ntemp * neta * npp, -1)[:, gsel]
     p0 = st.jpress + torch.where(st.tropo, 0, 1).to(st.jpress.dtype)
     acc = None
@@ -190,7 +195,7 @@ def tau_major(data, st: InterpState, dtype):
     tau = torch.zeros((st.ncol, st.nlay, ngpt), dtype=dtype,
                       device=kmajor.device)
     for (fl_low, fl_upp), gs in _flavor_groups(gpt_flavor, (0, 1)).items():
-        tau[..., torch.as_tensor(gs, device=tau.device)] = _interp3(
+        tau[..., on_device(gs, tau.device)] = _interp3(
             st, kmajor.to(dtype), gs, fl_low, fl_upp, True)
     return tau
 
@@ -238,8 +243,7 @@ def tau_minor(data, st: InterpState, play_pa, tlay, which, dtype):
         acc = torch.empty(st.ftemp.shape + (nk,), dtype=dtype,
                           device=kminor.device)
         for fl in np.unique(fls):
-            sel = torch.as_tensor(np.nonzero(fls == fl)[0],
-                                  device=kminor.device)
+            sel = on_device(np.nonzero(fls == fl)[0], kminor.device)
             kf = kflat[:, sel]
             acc_fl = None
             for dt in range(2):
@@ -277,7 +281,7 @@ def planck_source(data, st: InterpState, tlay, tlev, tsfc, dtype):
     pfrac = torch.zeros((st.ncol, st.nlay, ngpt), dtype=dtype,
                         device=pf.device)
     for (fl_low, fl_upp), gs in _flavor_groups(gpt_flavor, (0, 1)).items():
-        pfrac[..., torch.as_tensor(gs, device=pf.device)] = _interp3(
+        pfrac[..., on_device(gs, pf.device)] = _interp3(
             st, pf, gs, fl_low, fl_upp, False)
 
     totplnk = data["totplnk"].to(dtype)
@@ -307,7 +311,7 @@ def tau_rayleigh(data, st: InterpState, dtype):
         mask = st.tropo if itropo == 0 else ~st.tropo
         kflat = krayl[itropo].reshape(ntemp * neta, ngpt)
         for (fl,), gs in _flavor_groups(gpt_flavor, (itropo,)).items():
-            gsel = torch.as_tensor(gs, device=krayl.device)
+            gsel = on_device(gs, krayl.device)
             kf = kflat[:, gsel]
             acc = None
             for dt in range(2):

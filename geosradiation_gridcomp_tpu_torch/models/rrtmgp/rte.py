@@ -12,6 +12,7 @@ K4 for CUDA tensors, the plain twin for CPU tensors or when `plain`.
 
 import torch
 
+from ...tables import on_device
 from ..rrtmg.rtrnmc import rtrnmc
 from ..rrtmg.rtrnmc_cuda import rtrnmc_fast
 from ..rrtmg.spcvmc import reftra_sw, vrtqdr_sw
@@ -41,7 +42,7 @@ def rte_sw(taug, taur, tau_cld, ssa_cld, g_cld, toa_src, mu0,
 
     Returns dict: flux_up, flux_dn, flux_dir [ncol, nlev+1] (W/m^2).
     """
-    idx = torch.as_tensor(gpoint_bands(band_lims_gpt), device=taug.device)
+    idx = on_device(gpoint_bands(band_lims_gpt), taug.device)
 
     if delta_scale:
         f = g_cld * g_cld

@@ -18,6 +18,7 @@ pfracs * planck(band).
 import numpy as np
 import torch
 
+from ...tables import on_device
 from ..rrtmg.spcvmc import reftra_sw, vrtqdr_sw
 from .rte import _gsum
 from .sampling import gpoint_bands
@@ -53,7 +54,7 @@ def rte_lw_native(taug, sources, emis_bnd, band_lims_gpt,
     as DUFLX_DT).
     """
     ncol, nlay, ngpt = taug.shape
-    gband = torch.as_tensor(gpoint_bands(band_lims_gpt), device=taug.device)
+    gband = on_device(gpoint_bands(band_lims_gpt), taug.device)
 
     pf = sources["pfracs"]
     lay_g = pf * sources["planklay"][..., gband]
@@ -128,7 +129,7 @@ def rte_sw_native(taug, taur, toa_src, mu0, alb_dir_bnd, alb_dif_bnd,
     plus band_dn_sfc [ncol, nbnd]. Night columns (mu0 <= 0) return zero
     fluxes, matching rrtmg_sw.
     """
-    gband = torch.as_tensor(gpoint_bands(band_lims_gpt), device=taug.device)
+    gband = on_device(gpoint_bands(band_lims_gpt), taug.device)
     mu0c = torch.clamp(mu0, min=1e-4)
 
     ref_sfc_dir = alb_dir_bnd[..., gband]

@@ -9,6 +9,8 @@ static g-point -> band index.
 import numpy as np
 import torch
 
+from ...tables import on_device
+
 
 def sampled_mask_max_ran(urand, cloud_frac):
     """Maximum-random overlap cloud mask.
@@ -68,7 +70,6 @@ def draw_samples(cld_mask, props_bnd, band_lims_gpt):
 
     Returns dict of [ncol, nlay, ngpt] tensors.
     """
-    idx = torch.as_tensor(gpoint_bands(band_lims_gpt),
-                          device=cld_mask.device)
+    idx = on_device(gpoint_bands(band_lims_gpt), cld_mask.device)
     return {k: torch.where(cld_mask, v[..., idx], v.new_zeros(()))
             for k, v in props_bnd.items()}

@@ -15,6 +15,11 @@ Cloud optics: the band-resolved properties come from the RRTMG scheme's
 Ebert-Curry/Key/Fu + Hu-Stamnes parameterizations (the RRTMGSW / RRTMGLW
 modules' tables), evaluated once per band and expanded to g-points by
 sampling.draw_samples.
+
+The reference jits rrtmgp_sw and rrtmgp_lw (:128, :253): here their
+bodies are `rrtmgp_sw_eager` / `rrtmgp_lw_eager` and `rrtmgp_sw` /
+`rrtmgp_lw` those bodies as captured entries (driver/compiled.py), one
+CUDA graph per static key on a card.
 """
 
 from functools import lru_cache
@@ -22,9 +27,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...driver.compiled import captured, with_kernels
 from ...ops import threefry
 from ...ops.mcica import (_sigma_class, column_blocks, overlap_params,
                           state_seed_key, zcw_lookup_class)
+from ...tables import on_device
 from ..rrtmg.cldprmc_lw import band_abs_coeffs_lw
 from ..rrtmg.cldprmc_sw import (band_optics_coeffs_sw,
                                 cldprmc_from_band_coeffs_sw)
@@ -166,22 +173,23 @@ def _gas_lw(h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, cfc11vmr,
 
 
 def _sw_albedos(uvband, albdir_uv, albdif_uv, albdir_nir, albdif_nir):
-    uv = torch.as_tensor(uvband, device=albdir_uv.device)
+    uv = on_device(uvband, albdir_uv.device)
     return (torch.where(uv, albdir_uv[:, None], albdir_nir[:, None]),
             torch.where(uv, albdif_uv[:, None], albdif_nir[:, None]))
 
 
-def rrtmgp_sw(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
-              albdir_nir, albdif_nir,
-              h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr,
-              cldf, ciwp, clwp, rei, rel, zm, alat, doy,
-              taua=None, ssaa=None, asya=None,
-              tsi_scale=None, mg=0.1567652, sb=909.7126, *,
-              iceflag=3, liqflag=1, inhm=1, kdist_path=None, plain=False):
+def rrtmgp_sw_eager(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
+                    albdir_nir, albdif_nir,
+                    h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr,
+                    cldf, ciwp, clwp, rei, rel, zm, alat, doy,
+                    taua=None, ssaa=None, asya=None,
+                    tsi_scale=None, mg=0.1567652, sb=909.7126, *,
+                    iceflag=3, liqflag=1, inhm=1, kdist_path=None,
+                    plain=False):
     """RRTMGP-path SW fluxes (all-sky + clear), mirroring rrtmg_sw's
-    interface. sw: the RRTMGSW holding the tables (the facade's
-    k-distribution, and the cloud optics and condensate tables of both
-    routes). mg/sb: NRLSSI2 indices (k_dist%set_solar_variability);
+    interface, run op by op. sw: the RRTMGSW holding the tables (the
+    facade's k-distribution, and the cloud optics and condensate tables of
+    both routes). mg/sb: NRLSSI2 indices (k_dist%set_solar_variability);
     tsi_scale: optional [ncol] factor applied to the solar source.
 
     kdist_path: when set, an ingested RRTMGP coefficient file
@@ -246,9 +254,9 @@ def _rrtmgp_sw_native(kd, sw, ple, play, tlay, coszen, albdir_uv,
     host = KDistSW(sw)
     tau_h, ssa_h, g_h = _band_cloud_optics_sw(
         ciwp, clwp, rei, rel, sw.cloud_tables, iceflag, liqflag)
-    remap = torch.as_tensor(_band_remap(kd.get_band_lims_wavenumber(),
-                                        host.get_band_lims_wavenumber()),
-                            device=tlay.device)
+    remap = on_device(_band_remap(kd.get_band_lims_wavenumber(),
+                                  host.get_band_lims_wavenumber()),
+                      tlay.device)
     props = draw_samples(cld_mask, dict(tau=tau_h[..., remap],
                                         ssa=ssa_h[..., remap],
                                         g=g_h[..., remap]), lims)
@@ -274,14 +282,15 @@ def _rrtmgp_sw_native(kd, sw, ple, play, tlay, coszen, albdir_uv,
                 bbcu=out["flux_up_clr"], bbcd=out["flux_dn_clr"])
 
 
-def rrtmgp_lw(lw, ple, play, tlay, tsfc, emis,
-              h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr,
-              cfc11vmr, cfc12vmr, cfc22vmr,
-              cldf, ciwp, clwp, rei, rel, zm, alat, doy,
-              ccl4vmr=0.0, covmr=0.0,
-              *, iceflag=3, liqflag=1, inhm=1, dudts=True,
-              kdist_path=None, plain=False):
-    """RRTMGP-path LW fluxes (all-sky + clear) with McICA clouds. lw: the
+def rrtmgp_lw_eager(lw, ple, play, tlay, tsfc, emis,
+                    h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr,
+                    cfc11vmr, cfc12vmr, cfc22vmr,
+                    cldf, ciwp, clwp, rei, rel, zm, alat, doy,
+                    ccl4vmr=0.0, covmr=0.0,
+                    *, iceflag=3, liqflag=1, inhm=1, dudts=True,
+                    kdist_path=None, plain=False):
+    """RRTMGP-path LW fluxes (all-sky + clear) with McICA clouds, run op
+    by op. lw: the
     RRTMGLW holding the tables (the facade's k-distribution, and the
     cloud optics and condensate tables of both routes); emis [ncol, 16].
 
@@ -330,9 +339,9 @@ def _rrtmgp_lw_native(kd, lw, play, tlay, plev, tlev, tsfc, emis, gas,
     host = KDistLW(lw)
     tau_h = _band_cloud_optics_lw(ciwp, clwp, rei, rel, lw.cloud_tables,
                                   iceflag, liqflag)
-    remap = torch.as_tensor(_band_remap(kd.get_band_lims_wavenumber(),
-                                        host.get_band_lims_wavenumber()),
-                            device=tlay.device)
+    remap = on_device(_band_remap(kd.get_band_lims_wavenumber(),
+                                  host.get_band_lims_wavenumber()),
+                      tlay.device)
     tau_cld = draw_samples(cld_mask, dict(tau=tau_h[..., remap]),
                            lims)["tau"] * zcw
 
@@ -349,3 +358,31 @@ def _rrtmgp_lw_native(kd, lw, play, tlay, plev, tlev, tsfc, emis, gas,
                    duflxc_dts=out["duflxc_dts"],
                    dolrb_dts=out["dolrb_dts"])
     return res
+
+
+rrtmgp_sw = captured(
+    rrtmgp_sw_eager,
+    static_argnames=("sw", "mg", "sb", "iceflag", "liqflag", "inhm",
+                     "kdist_path", "plain"),
+    route=with_kernels)
+rrtmgp_sw.__doc__ = """RRTMGP-path SW fluxes (rrtmgp_sw_eager's arguments
+and results), as a CUDA graph captured once per static key on a card:
+the reference's static argnames (models/rrtmgp/scheme.py:128), the
+table module sw (by identity), plain, and mg and sb. Unlike the
+reference, where mg and sb are traced, they are static here (their
+values in the key): set_solar_variability folds them into
+the solar-source weights on the host, which a traced value would have to
+be read back for; the driver always passes the defaults. doy, tsi_scale
+and the tensors are traced. CPU tensors and plain=True run the body
+eagerly."""
+
+rrtmgp_lw = captured(
+    rrtmgp_lw_eager,
+    static_argnames=("lw", "iceflag", "liqflag", "inhm", "dudts",
+                     "kdist_path", "plain"),
+    route=with_kernels)
+rrtmgp_lw.__doc__ = """RRTMGP-path LW fluxes (rrtmgp_lw_eager's arguments
+and results), as a CUDA graph captured once per static key on a card:
+the reference's static argnames (models/rrtmgp/scheme.py:253), the
+table module lw (by identity) and plain; doy, ccl4vmr, covmr and the
+tensors are traced. CPU tensors and plain=True run the body eagerly."""

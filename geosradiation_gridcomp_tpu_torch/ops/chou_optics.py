@@ -10,13 +10,14 @@ under vmap; here they take a column batch: cosz [ncol], fields
 
 Coefficient tables keep the Fortran index order, e.g. aib_ir has shape
 (3, 10) = (coef, band); scalars of the tables enter the arithmetic as the
-same float32 values the reference uses.
+same float32 values the reference uses. The tables that enter as tensors
+are put on the device once per device and dtype (tables.on_device).
 """
 
 import torch
 
 from ..constants import DIFFUSIVITY, GRAV
-from ..tables import load
+from ..tables import load, on_device
 
 
 def _poly3(c0, c1, c2, c3, r):
@@ -45,7 +46,7 @@ def getirtau(dp_pa, fcld, reff, cwc):
     t = load("chou_rad_constants")
 
     def tab(k):
-        return torch.as_tensor(t[k], dtype=dp_pa.dtype, device=dp_pa.device)
+        return on_device(t[k], dp_pa.device, dp_pa.dtype)
     aib, awb, aiw = tab("aib_ir"), tab("awb_ir"), tab("aiw_ir")
     aww, aig, awg = tab("aww_ir"), tab("aig_ir"), tab("awg_ir")
 
@@ -133,8 +134,8 @@ def _overlap_scales(cosz, tauc, fa):
     Returns (xai_beam, xai_diff).
     """
     t = load("chou_rad_constants")
-    caib = torch.as_tensor(t["caib"], dtype=tauc.dtype, device=tauc.device)
-    caif = torch.as_tensor(t["caif"], dtype=tauc.dtype, device=tauc.device)
+    caib = on_device(t["caib"], tauc.device, tauc.dtype)
+    caif = on_device(t["caif"], tauc.device, tauc.dtype)
 
     tauc = torch.clamp(tauc, max=32.0)
     fm = (cosz / _DM)[:, None]

@@ -10,10 +10,12 @@ layers. The random fields are the oracle's threefry stream bit for bit
 Vertical ordering: TOA at index 0.
 """
 
+import functools
+
 import numpy as np
 import torch
 
-from ..tables import load
+from ..tables import load, on_device
 from . import threefry
 
 # Oreopoulos et al. (2012) decorrelation-length parameters
@@ -59,18 +61,26 @@ def state_seed_ints(play_hpa, seed_order=(0, 1, 2, 3)):
     """Four deterministic uint32 seeds (as int64) from near-surface layer
     pressures, in float32 exactly as the oracle forms them.
 
-    play_hpa: [..., nlay] TOA first. Returns [..., 4].
+    play_hpa: [..., nlay] TOA first. Returns [..., 4]. Slices, not
+    index lists: a list index is a copy from host memory.
     """
-    pseed = play_hpa[..., [-1, -2, -3, -4]] * 100.0   # lowest four, in Pa
-    pseed = pseed[..., list(seed_order)]
+    # the lowest four, bottom first, in Pa
+    low = torch.flip(play_hpa[..., -4:], (-1,)) * 100.0
+    pseed = torch.stack([low[..., i] for i in seed_order], dim=-1)
     return ((pseed - torch.floor(pseed)) * _MAXIMO + 1.0).to(torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _key0(device):
+    """threefry.key(0) on device, built once per device."""
+    return threefry.key(0, device=device)
 
 
 def state_seed_key(play_hpa, seed_order=(0, 1, 2, 3)):
     """Per-column threefry key: key(0) folded with the four state seeds.
     Returns [..., 2] int64 word pairs."""
     ints = state_seed_ints(play_hpa, seed_order)
-    k = threefry.key(0, device=play_hpa.device).expand(
+    k = _key0(play_hpa.device).expand(
         ints.shape[:-1] + (2,))
     for i in range(4):
         k = threefry.fold_in(k, ints[..., i])
@@ -204,8 +214,8 @@ def generate_stochastic_clouds(zmid, alat, doy, play, cldfrac, ciwp, clwp,
     zmid [ncol, nlay] layer mid heights (m); alat [ncol] (rad); doy scalar;
     play [ncol, nlay] (hPa); cldfrac, ciwp, clwp [ncol, nlay].
     zcw_cols: the (3, 1000) class columns for inhm (built from the
-    reference tables when None). Columns run in blocks of col_block to
-    bound the [block, nsubcol, nlay] temporaries.
+    reference tables, once per device, when None). Columns run in blocks
+    of col_block to bound the [block, nsubcol, nlay] temporaries.
 
     Returns cldy [ncol, nsubcol, nlay] bool, ciwp_stoch, clwp_stoch.
     """
@@ -213,8 +223,7 @@ def generate_stochastic_clouds(zmid, alat, doy, play, cldfrac, ciwp, clwp,
     sigcls = _sigma_class(cldfrac)
     keys = subcolumn_keys(play, seed_order)
     if zcw_cols is None and inhm != 0:
-        zcw_cols = torch.as_tensor(zcw_class_columns(inhm),
-                                   device=cldfrac.device)
+        zcw_cols = on_device(zcw_class_columns(inhm), cldfrac.device)
     parts = [subcolumns(keys[s], alpha[s], rcorr[s], cldfrac[s], ciwp[s],
                         clwp[s], sigcls[s], zcw_cols, cwp_tiny, nsubcol,
                         inhm)

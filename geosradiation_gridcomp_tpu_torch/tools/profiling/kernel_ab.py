@@ -107,9 +107,17 @@ def recording():
     """Within the block, each step kernel's wrapper, as the scheme modules
     (models/rrtmg/lw.py, sw.py) call it, keeps the arguments of its first
     call: yields kernel name -> (wrapper, args, kwargs). So does each
-    STAGE_HELPERS function a scheme module has, as "<module>.<name>"."""
+    STAGE_HELPERS function a scheme module has, as "<module>.<name>".
+    A replay calls no Python wrapper, so where the checkout's captured
+    entries can be told to run their bodies (driver.compiled.
+    disable_capture), the block runs under it."""
     modules = {m: importlib.import_module(f"{_PKG}.models.rrtmg.{m}")
                for m in ("lw", "sw")}
+    try:
+        compiled = importlib.import_module(f"{_PKG}.driver.compiled")
+    except ImportError:
+        compiled = None
+    eager = getattr(compiled, "disable_capture", contextlib.nullcontext)
     calls = {}
 
     def wrap(fn, name):
@@ -126,7 +134,8 @@ def recording():
         saved[m, attr] = getattr(modules[m], attr)
         setattr(modules[m], attr, wrap(saved[m, attr], name))
     try:
-        yield calls
+        with eager():
+            yield calls
     finally:
         for (m, attr), fn in saved.items():
             setattr(modules[m], attr, fn)

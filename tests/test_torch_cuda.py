@@ -37,7 +37,16 @@ radar's point blocks bitwise equal to one unblocked call. The captured
 step entries at 64 x 72: replays bitwise equal to the eager bodies at two
 doy values and on two scenes, K1-K6 counted once per replay, outputs of
 successive calls sharing no storage, a replay and the eager bodies
-under set_sync_debug_mode("error"), and a new shape captured anew.
+under set_sync_debug_mode("error"), and a new shape captured anew. The
+captured scheme entries at 64 x 72 (rrtmg_lw, rrtmg_sw, chou_sw,
+chou_lw, rrtmgp_sw, rrtmgp_lw): replays bitwise equal to their _eager
+bodies at two doy values (Chou: on two scenes), one graph per key, the
+launches of the eager body once per replay; radiation_refresh under
+Chou/Chou, RRTMGP/RRTMGP, the native engine and RRTMG SW + Chou LW
+(48 x 72) replayed bitwise equal to radiation_refresh_eager under
+disable_capture(); rats_refresh's replays bitwise equal to its eager
+run; each replay and eager body under set_sync_debug_mode("error"); the
+step refresh's capture records no rrtmg_lw / rrtmg_sw graph.
 """
 
 import numpy as np
@@ -47,12 +56,17 @@ import torch
 from geosradiation_gridcomp_tpu_torch.config import RadiationConfig, Scheme
 from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
 from geosradiation_gridcomp_tpu_torch.driver import step
+from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
+    mean_cos_zenith
 from geosradiation_gridcomp_tpu_torch.driver.checkpoint import (
     load_checkpoint, save_checkpoint)
 from geosradiation_gridcomp_tpu_torch.driver.clock import RadiationClock
+from geosradiation_gridcomp_tpu_torch.driver.compiled import disable_capture
 from geosradiation_gridcomp_tpu_torch.driver.diagnostics import (
     RATS_GASES, rats_refresh, rats_update)
 from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+from geosradiation_gridcomp_tpu_torch.models import chou_lw as chou_lw_mod
+from geosradiation_gridcomp_tpu_torch.models import chou_sw as chou_sw_mod
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
@@ -77,6 +91,7 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
     NGS_SW, taumol_sw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw_cuda import \
     taumol_sw_fast
+from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme as gp
 from geosradiation_gridcomp_tpu_torch.ops import mcica, threefry
 from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
 from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
@@ -584,8 +599,9 @@ def test_p3_matches_plain(case, variant):
 
 @pytest.fixture(scope="module")
 def rats(dev):
-    """RATS at 64 x 72 with the kernels (K3's inputs of each solve kept)
-    and with the twins."""
+    """RATS at 64 x 72 with the kernels (its 8 solves replay one captured
+    rrtmg_lw graph), through the eager bodies with K3's inputs of each
+    solve kept (a replay calls no wrapper), and with the twins."""
     inp = example_inputs(64, NLEV, device=dev)
     lw = lwm.RRTMGLW.from_reference_tables(dev)
     cfg = RadiationConfig()
@@ -594,17 +610,19 @@ def rats(dev):
     def k3_recorded(*args, **kwargs):
         k3_calls.append((args, kwargs))
         return taumol_lw_fast(*args, **kwargs)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    kern = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
     lwm.taumol_lw_fast = k3_recorded
     try:
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        kern = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+        with disable_capture():
+            eager = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
     finally:
         lwm.taumol_lw_fast = taumol_lw_fast
     plain = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw, plain=True)
-    return inp, lw, kern, plain, launches, k3_calls
+    return inp, lw, kern, plain, launches, k3_calls, eager
 
 
 def test_rats_launches_each_lw_kernel_once_per_gas(rats):
@@ -626,14 +644,14 @@ def test_k3_with_gas_zeroed(rats, gas):
 
 @pytest.mark.parametrize("gas", RATS_GASES)
 def test_rats_matches_plain(rats, gas):
-    _, _, kern, plain, _, _ = rats
+    kern, plain = rats[2], rats[3]
     g = RATS_GASES.index(gas)
     for f in kern._fields:
         assert relmax(getattr(kern, f)[g], getattr(plain, f)[g]) <= 5e-5, f
 
 
 def test_rats_forcing_on_the_card(rats):
-    inp, lw, kern, _, _, _ = rats
+    inp, lw, kern = rats[:3]
     irr = rad.irrad_refresh(inp, DOY, RadiationConfig(), 69, 71, lw=lw)
     _, forcing = rats_update(kern, irr, inp.tsinst + 0.5)
     toa = forcing[:, :, 0]
@@ -933,3 +951,219 @@ def test_a_new_key_captures_anew(captured_step):
         assert torch.equal(a, b)
     captured_step(ncol=56)
     assert len(refresh.graphs) == before + 1
+
+
+# --------------------------------------------------------------------------
+# the captured scheme entries
+# --------------------------------------------------------------------------
+
+def _sync_free(*fns):
+    """Run fns under set_sync_debug_mode("error"); returns their
+    results."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return [fn() for fn in fns]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def _sw_bounds(dev, seeds):
+    """The SW packing bounds that hold for the scenes of seeds at 64 x 72
+    (the larger of each), as bench.py takes them over its doy range."""
+    bounds = [step.sw_partition_bounds(
+        x.lons, x.lats, x.fcld, DOY, 12.0, RadiationConfig(), bucket=8)
+        for x in (example_inputs(64, NLEV, seed=s, device=dev)
+                  for s in seeds)]
+    return tuple(None if any(b[i] is None for b in bounds)
+                 else max(b[i] for b in bounds) for i in (0, 1))
+
+
+def _scheme_calls(dev, seed, bounds):
+    """name -> (entry, eager body, positional args before doy, keyword
+    args, takes doy) at 64 x 72 on the scene of seed, the refresh's
+    cos zenith and rrtmg_sw packed to bounds (nlit, ncld)."""
+    inp = example_inputs(64, NLEV, seed=seed, device=dev)
+    sw, lw = rad.reference_modules(dev)
+    play, h2o, o3 = rad._common_derived(inp)
+    z = torch.zeros_like(inp.co2)
+    o2 = torch.full_like(z, 0.2095)
+    tlev = lwm.level_temperatures(play, inp.t, inp.ple * 0.01, inp.tsinst)
+    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
+    ciwp, clwp = rad._incloud_paths(inp)
+    slr, lit = mean_cos_zenith(inp.lons, inp.lats, DOY, 12.0, 1.0)
+    cosz = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
+                       torch.zeros_like(slr))
+    emis16 = inp.emis[:, None].expand(64, 16)
+    cwc, reff = rad._cwc_reff(inp)
+    cloud = (inp.fcld, ciwp, clwp, inp.ri, inp.rl, zm, inp.lats)
+    sw_args = (inp.ple, play, inp.t, cosz, inp.albvr, inp.albvf, inp.albnr,
+               inp.albnf, h2o, o3, inp.co2, inp.ch4, o2, *cloud)
+    ict = dict(cloud_mh=69, cloud_lm=71)
+    return {
+        "rrtmg_lw": (lwm.rrtmg_lw, lwm.rrtmg_lw_eager,
+                     (lw, inp.ple, play, inp.t, tlev, inp.tsinst, emis16,
+                      h2o, o3, inp.co2, inp.ch4, inp.n2o, o2, z, inp.cfc11,
+                      inp.cfc12, inp.hcfc22, z, *cloud), ict, True),
+        "rrtmg_sw": (swm.rrtmg_sw, swm.rrtmg_sw_eager, (sw, *sw_args),
+                     dict(ict, nlit=bounds[0], ncld=bounds[1]), True),
+        "chou_sw": (chou_sw_mod.chou_sw, chou_sw_mod.chou_sw_eager,
+                    (cosz, inp.ple, inp.t, inp.qv, inp.o3, inp.co2, cwc,
+                     inp.fcld, reff),
+                    dict(rsuvbm=inp.albvr, rsuvdf=inp.albvf,
+                         rsirbm=inp.albnr, rsirdf=inp.albnf, ict=69,
+                         icb=71), False),
+        "chou_lw": (chou_lw_mod.chou_lw, chou_lw_mod.chou_lw_eager,
+                    (inp.ple, inp.t, inp.qv, inp.o3, inp.t2m, inp.tsinst,
+                     inp.emis[:, None].expand(64, 10), inp.co2, inp.n2o,
+                     inp.ch4, inp.cfc11, inp.cfc12, inp.hcfc22, cwc,
+                     inp.fcld, reff), dict(ict=69, icb=71), False),
+        "rrtmgp_sw": (gp.rrtmgp_sw, gp.rrtmgp_sw_eager, (sw, *sw_args), {},
+                      True),
+        "rrtmgp_lw": (gp.rrtmgp_lw, gp.rrtmgp_lw_eager,
+                      (lw, inp.ple, play, inp.t, inp.tsinst, emis16, h2o,
+                       o3, inp.co2, inp.ch4, inp.n2o, o2, inp.cfc11,
+                       inp.cfc12, inp.hcfc22, *cloud), {}, True)}
+
+
+@pytest.mark.parametrize("name", ["rrtmg_lw", "rrtmg_sw", "chou_sw",
+                                  "chou_lw", "rrtmgp_sw", "rrtmgp_lw"])
+def test_scheme_entry_replays_bitwise_equal_eager(dev, name):
+    """The captured entry against its _eager body at two doy values (the
+    Chou-Suarez entries, which take none, on two scenes): bitwise equal,
+    one graph for the key, each kernel of the eager body counted once per
+    replay; the replays and the eager body under
+    set_sync_debug_mode("error")."""
+    runs = [(0, DOY), (0, DOY + 0.001), (1, DOY + 0.25)]
+    bounds = _sw_bounds(dev, (0, 1))
+    assert bounds[0] is not None
+    cases = {seed: _scheme_calls(dev, seed, bounds)[name] for seed in (0, 1)}
+    entry = cases[0][0]
+    before = len(entry.graphs)
+
+    def args(seed, doy):
+        _, _, a, kw, takes_doy = cases[seed]
+        return (*a, doy) if takes_doy else a, kw
+    a, kw = args(0, DOY)
+    LAUNCHES.clear()
+    entry.body(*a, **kw)
+    torch.cuda.synchronize()
+    eager_launches = dict(LAUNCHES)
+    entry(*a, **kw)                                 # warm-up + capture
+    assert len(entry.graphs) == before + 1
+    for seed, doy in runs:
+        a, kw = args(seed, doy)
+        LAUNCHES.clear()
+        got, want = _sync_free(lambda: entry(*a, **kw),
+                               lambda: cases[seed][1](*a, **kw))
+        assert dict(LAUNCHES) == {k: 2 * n for k, n in
+                                  eager_launches.items()}
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, seed, doy, k)
+    assert len(entry.graphs) == before + 1
+
+
+@pytest.mark.parametrize("pair", ["chou/chou", "rrtmgp/rrtmgp", "native",
+                                  "rrtmg/chou"])
+def test_refresh_under_other_schemes_replays_bitwise_equal(dev, tmp_path,
+                                                           pair):
+    """radiation_refresh at 48 x 72 captured under Chou/Chou,
+    RRTMGP/RRTMGP (the facade), the native engine and RRTMG SW + Chou LW:
+    the replays at two doy values bitwise equal to
+    radiation_refresh_eager under disable_capture(), the eager run's
+    launches once per replay, no scheme entry recording a graph of its
+    own; replay and eager body under set_sync_debug_mode("error")."""
+    from chip_smoke import save_kdist_npz, synthetic_kdist
+    schemes = {"chou/chou": dict(sw_scheme=Scheme.CHOU,
+                                 lw_scheme=Scheme.CHOU),
+               "rrtmgp/rrtmgp": dict(sw_scheme=Scheme.RRTMGP,
+                                     lw_scheme=Scheme.RRTMGP),
+               "rrtmg/chou": dict(sw_scheme=Scheme.RRTMG,
+                                  lw_scheme=Scheme.CHOU)}
+    if pair == "native":
+        paths = [str(tmp_path / f"{b}.npz") for b in ("lw", "sw")]
+        for p in paths:
+            save_kdist_npz(synthetic_kdist(), p)
+        cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP,
+                              lw_scheme=Scheme.RRTMGP,
+                              rrtmgp_kdist_lw=paths[0],
+                              rrtmgp_kdist_sw=paths[1],
+                              outputs=frozenset({"olrb"}))
+    else:
+        cfg = RadiationConfig(**schemes[pair])
+    # 48 columns: a key no other test captures
+    inp = example_inputs(48, NLEV, device=dev)
+    entries = (lwm.rrtmg_lw, swm.rrtmg_sw, chou_sw_mod.chou_sw,
+               chou_lw_mod.chou_lw, gp.rrtmgp_sw, gp.rrtmgp_lw)
+    graphs = [dict(e.graphs) for e in entries]
+
+    def refresh(doy, eager=False):
+        if eager:
+            with disable_capture():
+                return step.radiation_refresh_eager(inp, doy, 12.0,
+                                                    config=cfg, ict=69,
+                                                    icb=71)
+        return step.radiation_refresh(inp, doy, 12.0, config=cfg, ict=69,
+                                      icb=71)
+    LAUNCHES.clear()
+    refresh(DOY, eager=True)
+    torch.cuda.synchronize()
+    eager_launches = dict(LAUNCHES)
+    before = len(step.radiation_refresh.graphs)
+    refresh(DOY)                                    # warm-up + capture
+    assert len(step.radiation_refresh.graphs) == before + 1
+    assert [dict(e.graphs) for e in entries] == graphs
+    for doy in (DOY, DOY + 0.001):
+        LAUNCHES.clear()
+        got, want = _sync_free(lambda: refresh(doy),
+                               lambda: refresh(doy, eager=True))
+        assert dict(LAUNCHES) == {k: 2 * n for k, n in
+                                  eager_launches.items()}
+        for a, b in zip(_step_tensors(got), _step_tensors(want)):
+            assert torch.equal(a, b), (pair, doy)
+    assert len(step.radiation_refresh.graphs) == before + 1
+
+
+def test_rats_replays_bitwise_equal_eager(rats):
+    """RATS's 8 solves through one captured rrtmg_lw graph: K1, K3 and K4
+    counted 8 times each over the replays, the states bitwise equal to
+    the eager run's, and a second RATS refresh replayed and run eagerly
+    under set_sync_debug_mode("error")."""
+    inp, lw, kern, _, launches, _, eager = rats
+    assert launches == dict.fromkeys(("mcica_optics_lw", "taumol_lw",
+                                      "rtrnmc"), len(RATS_GASES))
+    for f in kern._fields:
+        assert torch.equal(getattr(kern, f), getattr(eager, f)), f
+    keys = [k for k in lwm.rrtmg_lw.graphs if ("lw", lw) in k[0]]
+    assert len(keys) == 1
+    cfg = RadiationConfig()
+
+    def eager_run():
+        with disable_capture():
+            return rats_refresh(inp, DOY + 0.5, cfg, 69, 71, lw=lw)
+    LAUNCHES.clear()
+    got, want = _sync_free(
+        lambda: rats_refresh(inp, DOY + 0.5, cfg, 69, 71, lw=lw), eager_run)
+    assert dict(LAUNCHES) == {k: 2 * n for k, n in launches.items()}
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert [k for k in lwm.rrtmg_lw.graphs if ("lw", lw) in k[0]] == keys
+
+
+def test_step_capture_records_no_scheme_graph(dev):
+    """The step refresh's capture runs rrtmg_sw and rrtmg_lw's bodies
+    inside its own graph: a new step key adds no graph to either."""
+    cfg = RadiationConfig()
+    inp = example_inputs(40, NLEV, seed=3, device=dev)
+    sw, lw = rad.reference_modules(dev)
+    before = [dict(e.graphs) for e in (lwm.rrtmg_lw, swm.rrtmg_sw)]
+    n = len(step.radiation_refresh.graphs)
+    LAUNCHES.clear()
+    step.radiation_refresh(inp, DOY, 12.0, config=cfg, ict=69, icb=71,
+                           sw=sw, lw=lw)
+    torch.cuda.synchronize()
+    assert len(step.radiation_refresh.graphs) == n + 1
+    assert dict(LAUNCHES) == dict.fromkeys(STEP_KERNELS, 1)
+    assert [dict(e.graphs) for e in (lwm.rrtmg_lw, swm.rrtmg_sw)] == before

@@ -13,6 +13,7 @@ reaches setcoef's water terms and the continuum. The forcing signs are
 those of tests/test_diagnostics.py:51-78.
 """
 
+import functools
 import os
 import sys
 
@@ -135,6 +136,9 @@ def test_rats_subset_and_unknown_gas(runs):
 
 
 def test_rats_refresh_builds_the_tables_once(runs, monkeypatch):
+    """The LW tables are built once per device (radiation.
+    reference_modules) and shared by every solve of every RATS refresh:
+    on a card the solves then replay one rrtmg_lw graph."""
     built = []
     orig = tlw.RRTMGLW.from_reference_tables
 
@@ -142,9 +146,12 @@ def test_rats_refresh_builds_the_tables_once(runs, monkeypatch):
         built.append(device)
         return orig(device)
     monkeypatch.setattr(tlw.RRTMGLW, "from_reference_tables", counted)
+    monkeypatch.setattr(trad, "reference_modules", functools.lru_cache(
+        maxsize=None)(trad.reference_modules.__wrapped__))
     ti = runs["ti"]
-    st = tdg.rats_refresh(ti, DOY, TConfig(), runs["ict"], runs["icb"],
-                          gases=("H2O", "CO2", "N2O"))
+    for _ in range(2):
+        st = tdg.rats_refresh(ti, DOY, TConfig(), runs["ict"], runs["icb"],
+                              gases=("H2O", "CO2", "N2O"))
     assert built == [ti.t.device]
     assert torch.equal(st.flx[1], runs["tr"].flx[GASES.index("CO2")])
 

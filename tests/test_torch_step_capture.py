@@ -12,9 +12,9 @@ CPU); what is held here is what the capture relies on:
   neither itself nor the static buffers;
 - the cache key changes with config, ict / icb, sw_nlit / sw_ncld, the
   shapes and the aerosol structure, and with nothing else;
-- the refresh's route is a static test (a card, not plain, both schemes
-  RRTMG); Captured's bookkeeping with torch.cuda's graph API stood in
-  for;
+- the refresh's route is a static test (a card, not plain, under every
+  scheme pair); Captured's bookkeeping with torch.cuda's graph API stood
+  in for;
 - a second refresh + update makes no torch.as_tensor / torch.tensor call
   on host data and reads no tensor back to the host (Tensor.item,
   tolist, numpy, cpu, __bool__, __int__, __float__), outside the kernel
@@ -339,9 +339,11 @@ def test_captured_bookkeeping(monkeypatch):
 
 
 def test_refresh_route_is_a_static_test(scene, monkeypatch):
-    """The refresh takes the graph only on a card, with the kernels (not
-    plain) and both schemes RRTMG, and then gets the per-device table
-    modules where the caller gave none; the update takes it on a card."""
+    """The refresh takes the graph on a card with the kernels (not plain)
+    under every pair of SW and LW schemes (Chou-Suarez, RRTMG, RRTMGP,
+    and RRTMGP's native engine), and then gets the per-device table
+    modules where the caller gave none; CPU tensors and plain=True stay
+    eager; the update takes it on a card."""
     from geosradiation_gridcomp_tpu_torch.config import Scheme
     from geosradiation_gridcomp_tpu_torch.driver.compiled import on_card
 
@@ -352,11 +354,16 @@ def test_refresh_route_is_a_static_test(scene, monkeypatch):
     base = dict(inp=scene["inp"], config=T_CFG, plain=False,
                 **scene["mods"])
     route = tstep._refresh_route
-    assert route(base, torch.device("cpu")) is None
-    assert route({**base, "plain": True}, card) is None
-    for s in (Scheme.CHOU, Scheme.RRTMGP):
-        assert route({**base, "config": TConfig(sw_scheme=s)}, card) is None
-        assert route({**base, "config": TConfig(lw_scheme=s)}, card) is None
+    pairs = [TConfig(sw_scheme=s, lw_scheme=l) for s in Scheme
+             for l in Scheme]
+    pairs.append(TConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP,
+                         rrtmgp_kdist_sw="sw.npz", rrtmgp_kdist_lw="lw.npz"))
+    assert len(pairs) == 10
+    for cfg in pairs:
+        assert route({**base, "config": cfg}, torch.device("cpu")) is None
+        assert route({**base, "config": cfg, "plain": True}, card) is None
+        got = {**base, "config": cfg}
+        assert route(got, card) == got
     assert route(base, card) == base and built == []
     got = route({**base, "sw": None}, card)
     assert (got["sw"], got["lw"]) == ("S", scene["mods"]["lw"])
