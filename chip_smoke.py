@@ -152,17 +152,22 @@ nvcc per source side by side, then:
    heartbeat; the alarm's radiation_refresh + rats_refresh replayed
    bitwise equal to the eager bodies at two doy values, both under
    set_sync_debug_mode("error"), and both routes' times;
-11. satsim phase: cosp_simulator (SatsimConfig(): 50 subcolumns, every
-   simulator, the 40-bin CloudSat stat grid) at 8192 points x 50
-   subcolumns x 72 levels on a scene made from the realistic one
-   (satsim_inputs), key 11: no kernel may launch; every group and key
-   present, each value finite or one of the reference's fill values, the
-   ranges the reference's satsim tests check; the same call on the first
-   256 points on the card and on the CPU: frac_out, prec_frac and the
-   MODIS phases identical, fill values in the same places, every other
-   float within relmax 5e-5 (meantaucld in albedo space), the histogram
-   counts compared and any flipped count reported; wall time (median of
-   3), CUDA-event time, the radar alone and the peak device memory;
+11. satsim phase: the captured cosp_simulator (SatsimConfig(): 50
+   subcolumns, every simulator, the 40-bin CloudSat stat grid) at 8192
+   points x 50 subcolumns x 72 levels on a scene made from the realistic
+   one (satsim_inputs), key 11: the first call's ms and the growth of
+   the graph pool it captures into, one of its own; no kernel may launch; every group and key present, each value
+   finite or one of the reference's fill values, the ranges the
+   reference's satsim tests check; the same call on the first 256 points
+   on the card and on the CPU: frac_out, prec_frac and the MODIS phases
+   identical, fill values in the same places, every other float within
+   relmax 5e-5 (meantaucld in albedo space), the histogram counts
+   compared and any flipped count reported; the replays bitwise equal to
+   the eager body run op by op under disable_capture at keys 11 and 12;
+   both routes under set_sync_debug_mode("error"); eager / captured /
+   captured / eager wall and CUDA-event ms; the peak memory of each
+   route beside the pool's; the radar alone on the arguments of an eager
+   call; then the phase's graph is dropped;
 12. parallel phase: the step's refresh through shard_columns(
    column_mesh(), inp) + run_sharded at 8192 x 72, bitwise equal to the
    unsharded refresh, K1-K6 launched; in two shards on the one card,
@@ -196,7 +201,7 @@ alone, beside subcolumn_keys, now off the kernel path (CUDA events);
 and the same device profile of the RATS refresh, the Chou refresh +
 update, the RRTMGP facade refresh and the native RRTMGP refresh + update,
 each replayed and eager (op by op), of a heartbeat's radiation_update +
-rats_update and of cosp_simulator.
+rats_update and of cosp_simulator, replayed and eager.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
@@ -798,11 +803,11 @@ def profiling_path(torch):
     return dict(LAUNCHES)
 
 
-def pool_bytes(torch, dev):
+def pool_bytes(torch, dev, pool=None):
     """Bytes the caching allocator holds for the captured graphs' shared
-    memory pool on dev (driver/compiled.py:graph_pool)."""
+    memory pool on dev (driver/compiled.py:graph_pool), or for pool."""
     from geosradiation_gridcomp_tpu_torch.driver.compiled import graph_pool
-    pool = tuple(graph_pool(dev)[0])
+    pool = tuple(graph_pool(dev)[0] if pool is None else pool)
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg["segment_pool_id"]) == pool)
 
@@ -1201,11 +1206,12 @@ def sync_free_gate(torch, name, run):
         raise AssertionError(f"{name} synchronises the stream at {where}")
 
 
-def replay_vs_eager(torch, label, captured, eager_run, doys):
-    """Gate: captured(doy) bitwise equal to eager_run(doy) at each doy."""
+def replay_vs_eager(torch, label, captured, eager_run, doys, what="doy"):
+    """Gate: captured(doy) bitwise equal to eager_run(doy) at each doy (or
+    at each value of what the two take)."""
     for doy in doys:
         n = unequal_leaves(torch, captured(doy), eager_run(doy))
-        gate(f"{label} replay vs eager body at doy {doy}: leaves not "
+        gate(f"{label} replay vs eager body at {what} {doy}: leaves not "
              f"bitwise equal", n, 0)
 
 
@@ -1218,15 +1224,16 @@ def peak_mib(torch, run):
     return torch.cuda.max_memory_allocated() / 2**20
 
 
-def drop_graphs(torch, dev, config):
-    """Drop the captured refresh's and update's graphs of config once its
-    phase is done: their blocks return to the shared pool, where later
-    captures reuse them, instead of each phase's key adding its share
-    (the Chou-Suarez and RRTMGP keys hold some 12 and 18 GB)."""
+def drop_graphs(torch, dev, config, entries=None):
+    """Drop the graphs of config of the captured entries (by default the
+    refresh and the update) once its phase is done: their blocks return
+    to the shared pool, where later captures reuse them, instead of each
+    phase's key adding its share (the Chou-Suarez and RRTMGP keys hold
+    some 12 and 18 GB)."""
     from geosradiation_gridcomp_tpu_torch.driver.step import (
         radiation_refresh, radiation_update)
     n = 0
-    for entry in (radiation_refresh, radiation_update):
+    for entry in entries or (radiation_refresh, radiation_update):
         for key in [k for k in entry.graphs if ("config", config) in k[0]]:
             del entry.graphs[key]
             n += 1
@@ -1976,10 +1983,17 @@ def satsim_compare(torch, card, cpu, ncol):
 
 
 def satsim_phase(torch, dev, profile=False):
-    """The COSP satellite simulators at full width on the card (no
-    kernel), against the same call on the CPU on 256 points; times,
-    peak memory and the radar's share (with profile, where the time
-    goes)."""
+    """The COSP satellite simulators at full width on the card through the
+    captured cosp_simulator, no kernel launched: the first call and the
+    graph pool's growth; every group and key, finite or a fill value,
+    within the reference tests' ranges; against the same call on the CPU
+    on 256 points; the replays bitwise equal to the eager body
+    (op_by_op) at keys 11 and 12; replay and eager body sync-free; both
+    routes' times and peak memory beside the pool's; the radar alone on
+    the arguments of an eager call (with profile, where each route's
+    time goes and its idle share); then the phase's graphs are
+    dropped."""
+    from geosradiation_gridcomp_tpu_torch.driver import compiled
     from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
     from geosradiation_gridcomp_tpu_torch.ops import threefry
     from geosradiation_gridcomp_tpu_torch.satsim import (SatsimConfig,
@@ -1988,41 +2002,45 @@ def satsim_phase(torch, dev, profile=False):
 
     cfg = SatsimConfig()
     inp = satsim_inputs(torch, NCOL_SLICE, dev)
-    key = threefry.key(11, device=dev)
+    keys = {seed: threefry.key(seed, device=dev) for seed in (11, 12)}
+
+    def run(seed=11, x=inp):
+        return cosp.cosp_simulator(keys[seed] if x.t.is_cuda
+                                   else keys[seed].cpu(), x, cfg)
+    eager_run = op_by_op(run)
+
     print(f"satsim: cosp_simulator (SatsimConfig(): {cfg.ncolumns} "
           f"subcolumns, every simulator, the {cfg.nlr}-bin stat grid) at "
           f"{NCOL_SLICE} points x {NLEV} levels, key 11:")
-    # the radar's inputs, kept to time it alone
-    qb, qb_calls = cosp.quickbeam_simulator, []
-
-    def qb_recorded(*args, **kwargs):
-        qb_calls.append((args, kwargs))
-        return qb(*args, **kwargs)
-    cosp.quickbeam_simulator = qb_recorded
+    # the key captures into a pool of its own, so that the pool's growth
+    # is the key's need (in the shared pool it fits in the blocks the
+    # dropped Chou and RRTMGP keys left free); later captures take the
+    # shared pool again. A pool whose graphs are all dropped takes no
+    # new capture while a block allocated in it lives (PyTorch's
+    # allocator asserts), so this one is used for this key alone.
+    own = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev))
+    shared, compiled.graph_pool = compiled.graph_pool, lambda device: own
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
-        t0 = time.perf_counter()
-        out = cosp.cosp_simulator(key, inp, cfg)
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+        out, first_ms, pool_mib = first_call(torch, dev, run)
     finally:
-        cosp.quickbeam_simulator = qb
+        compiled.graph_pool = shared
+    launches = dict(LAUNCHES)
     print(f"  kernel launches in the satsim path: {launches}")
     if launches:
         raise AssertionError(f"the satsim path launched {launches}")
+    print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
+          f"graph pool +{pool_mib:.1f} MiB for the key")
     satsim_checks(torch, out, cfg, NCOL_SLICE)
     del out
 
     n = 256
     head = SatsimInputs(*(x[:n] for x in inp))
     print(f"  card vs CPU on the first {n} points (their own call, key 11):")
-    card = cosp.cosp_simulator(key, head, cfg)
+    card = run(x=head)
     cpu_in = SatsimInputs(*(x.cpu() for x in head))
     t0 = time.perf_counter()
-    cpu = cosp.cosp_simulator(key.cpu(), cpu_in, cfg)
+    cpu = run(x=cpu_in)
     t_cpu = time.perf_counter() - t0
     pf = [prec_scops(x.qr + x.qs + x.qg, torch.zeros_like(x.qr),
                      o["frac_out"]) for x, o in ((head, card),
@@ -2030,22 +2048,41 @@ def satsim_phase(torch, dev, profile=False):
     gate("prec_frac mismatches", float((pf[0].cpu() != pf[1]).sum()), 0)
     flips, total = satsim_compare(torch, card, cpu, cfg.ncolumns)
     del card, cpu, pf
+    print(f"  the CPU call on {n} points {t_cpu:.1f} s")
 
-    def run():
-        return cosp.cosp_simulator(key, inp, cfg)
-    t = walls(torch, run, 3)
-    ev = time_ms(torch, run, 3)
-    args, kw = qb_calls[0]
+    replay_vs_eager(torch, "cosp_simulator", run, eager_run, (11, 12),
+                    what="key")
+    sync_free_gate(torch, "cosp_simulator replayed", run)
+    sync_free_gate(torch, "cosp_simulator eager", eager_run)
+    times = route_times(torch, "cosp_simulator", run, eager_run, 3)
+    print(f"  peak device memory of one cosp_simulator: eager "
+          f"{peak_mib(torch, eager_run):.1f} MiB, replayed "
+          f"{peak_mib(torch, run):.1f} MiB beside the key's graph pool's "
+          f"{pool_bytes(torch, dev, own[0]) / 2**20:.1f} MiB")
+    # the radar's inputs, recorded on the eager body (a replay calls no
+    # Python function), to time it alone
+    qb, qb_calls = cosp.quickbeam_simulator, []
+
+    def qb_recorded(*args, **kwargs):
+        qb_calls.append((args, kwargs))
+        return qb(*args, **kwargs)
+    cosp.quickbeam_simulator = qb_recorded
+    try:
+        eager_run()
+    finally:
+        cosp.quickbeam_simulator = qb
+    (args, kw), = qb_calls
     radar = time_ms(torch, lambda: qb(*args, **kw), 3)
-    print(f"  cosp_simulator wall {statistics.median(t) * 1e3:.1f} ms (median "
-          f"of 3; {[round(x * 1e3, 1) for x in t]}; first call "
-          f"{first * 1e3:.1f}), {ev:.1f} ms by CUDA events (mean of 3); "
-          f"quickbeam_simulator alone {radar:.1f} ms ({100 * radar / ev:.1f}"
-          f" % of it); peak device memory {peak / 2**20:.1f} MiB; the CPU "
-          f"call on {n} points {t_cpu:.1f} s")
+    ev = {k: statistics.mean(v[1]) for k, v in times.items()}
+    print(f"  quickbeam_simulator alone ({len(kw['classes'])} classes "
+          f"{kw['classes']}) {radar:.1f} ms by CUDA events (mean of 3): "
+          f"{100 * radar / ev['eager']:.1f} % of the eager call, "
+          f"{100 * radar / ev['captured']:.1f} % of the replay")
     del qb_calls, args, kw
     if profile:
-        device_profile(torch, "cosp_simulator", run, 1, top=12)
+        device_profile(torch, "cosp_simulator, replayed", run, 1, top=12)
+        device_profile(torch, "cosp_simulator, eager", eager_run, 1, top=12)
+    drop_graphs(torch, dev, cfg, (cosp.cosp_simulator,))
     return dict(flips=flips, counts=total)
 
 

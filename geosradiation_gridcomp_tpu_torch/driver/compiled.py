@@ -2,17 +2,20 @@
 
 The reference wraps its entry points in jax.jit with static arguments:
 the step's radiation_refresh and radiation_update
-(geosradiation_gridcomp_tpu/driver/step.py:20-22, 59) and the schemes'
-rrtmg_lw / rrtmg_sw, chou_sw / chou_lw and rrtmgp_sw / rrtmgp_lw. Each
-static key is traced and compiled once, and every later call copies in
-its traced arguments and dispatches one program. Here
-`captured(body, static_argnames=...)` does the same on a card:
+(geosradiation_gridcomp_tpu/driver/step.py:20-22, 59), the schemes'
+rrtmg_lw / rrtmg_sw, chou_sw / chou_lw and rrtmgp_sw / rrtmgp_lw, and the
+satellite simulators' cosp_simulator (satsim/cosp.py:143; the
+simulators' own jits trace into it). Each static key is traced and
+compiled once, and every later call copies in its traced arguments and
+dispatches one program. Here `captured(body, static_argnames=...)` does
+the same on a card:
 
-- the key is the static arguments' values (`config` is a frozen
-  dataclass, as for jit) plus the structure of the traced ones: for each
-  tensor its shape, dtype and device, a scalar (a Python number or a 0-d
-  floating tensor: `doy`, `utc_hours`) as such, and where each None,
-  tuple or NamedTuple stands (`sw_aero`, `lw_aero`, the states);
+- the key is the static arguments' values (`config`, a RadiationConfig
+  or a SatsimConfig, is a frozen dataclass, as for jit) plus the
+  structure of the traced ones: for each tensor its shape, dtype and
+  device, a scalar (a Python number or a 0-d floating tensor: `doy`,
+  `utc_hours`) as such, and where each None, tuple or NamedTuple stands
+  (`sw_aero`, `lw_aero`, the states, SatsimInputs);
 - the first call with a key allocates static input buffers (a scalar
   becomes a 0-d float32 device tensor), copies the call's values in,
   warms the body up on them on a side stream (which fills the
@@ -28,8 +31,9 @@ its traced arguments and dispatches one program. Here
 A route function decides from the bound arguments whether a call takes
 the graph at all (CPU tensors and the plain twins run the body eagerly,
 as the caller asked) and may complete them (the refresh fills in its
-table modules). A capture that fails raises; nothing falls back to the
-eager body. Every static value must hash.
+table modules, cosp_simulator its default config). A capture that fails
+raises; nothing falls back to the eager body. Every static value must
+hash.
 
 Nesting: a jit called inside another jit traces into its caller, and so
 here a captured entry called while another entry's body warms up or is

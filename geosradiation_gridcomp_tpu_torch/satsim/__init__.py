@@ -4,7 +4,11 @@ simulator is a plain PyTorch function over (points, subcolumns, levels)
 batches on the device of its inputs; level sweeps are Python loops over
 levels or cumulative ops, and the subcolumn sampler draws the reference's
 counter-based threefry stream bit for bit (ops/threefry.py). The JAX
-package leaves these to XLA: they hold no kernel."""
+package leaves these to XLA: they hold no kernel. `cosp_simulator`, the
+reference's jitted driver, is a captured entry (driver/compiled.py): one
+CUDA graph per SatsimConfig and input shapes on a card, its body
+`cosp.cosp_simulator_eager`; the simulators it calls trace into it, as
+the reference's inner jits do."""
 
 from .scops import scops, prec_scops                        # noqa: F401
 from .icarus import isccp_simulator                         # noqa: F401

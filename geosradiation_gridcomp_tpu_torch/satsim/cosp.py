@@ -13,9 +13,19 @@ One call covers every point with one key (scops draws (nlev, npoints,
 nsubcol) from it); only the radar's DSD planes are blocked, inside
 quickbeam_simulator. Everything runs on the device of the inputs.
 
+The reference jits cosp_simulator with config static (cosp.py:143; the
+simulators' own jits trace into it): here its body is
+`cosp_simulator_eager` and `cosp_simulator` that body as a captured entry
+(driver/compiled.py), one CUDA graph per SatsimConfig and input shapes on
+a card. The body reads no device value and copies nothing from host
+memory: the simulators' tables and bin edges go to the device once
+(tables.on_device), and the radar's classes are a static tuple.
+
 Hydrometeor class order (cosp_constants.F90:116): LSL, LSI, LSR, LSS,
 CVL, CVI, CVR, CVS, LSG. GEOS feeds zero convective species
-(GEOS_SatsimGridComp.F90:3689-3692).
+(GEOS_SatsimGridComp.F90:3689-3692), so the radar integrates the five
+large-scale classes (PRESENT) and leaves the convective ones out: an
+absent class adds exact zeros.
 """
 
 import dataclasses
@@ -24,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import GRAV
+from ..driver.compiled import captured, on_card
 from ..tables import load
 from .icarus import isccp_simulator
 from .lidar import lidar_simulator, lidar_stats
@@ -37,6 +48,8 @@ from .stats import change_vertical_grid, csat_vgrid_bounds
 I_LSCLIQ, I_LSCICE, I_LSRAIN, I_LSSNOW = 0, 1, 2, 3
 I_CVCLIQ, I_CVCICE, I_CVRAIN, I_CVSNOW, I_LSGRPL = 4, 5, 6, 7, 8
 N_HYDRO = 9
+# the classes GEOS fills, the radar's planes in this order
+PRESENT = (I_LSCLIQ, I_LSCICE, I_LSRAIN, I_LSSNOW, I_LSGRPL)
 
 ISCCP_EMSFC_LW = 0.99   # 10.5um surface emissivity (COSP default)
 
@@ -141,8 +154,10 @@ def _distribute(gb_mr, mask, frac):
     return torch.where(mask, (gb_mr * scale)[:, None, :], zero)
 
 
-def cosp_simulator(key, inp: SatsimInputs, config: SatsimConfig = None):
-    """Run the configured satellite simulators on a column batch.
+def cosp_simulator_eager(key, inp: SatsimInputs,
+                         config: SatsimConfig = None):
+    """Run the configured satellite simulators on a column batch, the
+    body of cosp_simulator.
 
     key: [2] int64 threefry key pair (ops.threefry.key(seed)).
     Returns a dict of diagnostic groups: 'isccp', 'misr', 'modis',
@@ -278,11 +293,11 @@ def cosp_simulator(key, inp: SatsimInputs, config: SatsimConfig = None):
     if cfg.run_radar:
         rh = torch.clamp(inp.qv / torch.clamp(_qsat(inp.t, play), min=1e-12),
                          0.0, 1.0) * 100.0
-        nothing = torch.zeros(frac_out.shape, dtype=fdt, device=dev)
-        hm = torch.stack([mr.get(i, nothing) for i in range(N_HYDRO)]) * 1e3
-        re = torch.stack([re_cld.get(i, nothing) for i in range(N_HYDRO)])
+        hm = torch.stack([mr[i] for i in PRESENT]) * 1e3
+        re = torch.stack([re_cld[i] for i in PRESENT])
         rad = quickbeam_simulator(inp.zle[:, :-1] / 1000.0, play / 100.0,
-                                  inp.t - 273.15, rh, hm, re)
+                                  inp.t - 273.15, rh, hm, re,
+                                  classes=PRESENT)
         del hm, re
         dbze = regrid(rad["dbze"], log=True) if cfg.use_vgrid \
             else rad["dbze"]
@@ -301,6 +316,26 @@ def cosp_simulator(key, inp: SatsimInputs, config: SatsimConfig = None):
             out["radar"]["radar_lidar_tcc"] = tcc
 
     return out
+
+
+def _cosp_route(arguments, device):
+    """Capture where the inputs lie on a card (the key must lie there
+    too: the capture refuses traced tensors on two devices), with the
+    default config filled in, so that None and SatsimConfig() are one
+    key."""
+    if arguments["config"] is None:
+        arguments = {**arguments, "config": SatsimConfig()}
+    return on_card(arguments, arguments["inp"].t.device)
+
+
+cosp_simulator = captured(cosp_simulator_eager, static_argnames=("config",),
+                          route=_cosp_route)
+cosp_simulator.__doc__ = """The configured satellite simulators on a column
+batch (cosp_simulator_eager's arguments and results), as a CUDA graph
+captured once per SatsimConfig and input shapes on a card (the
+reference's static config, satsim/cosp.py:143; the key and the inputs
+are traced, and the key must lie on the inputs' device); CPU inputs run
+the body eagerly."""
 
 
 def _qsat(t, p_pa):

@@ -15,6 +15,8 @@ All level arrays are TOA-first ([..., 0] = top), like the reference.
 import numpy as np
 import torch
 
+from ..tables import on_device
+
 # ISCCP 7x7 histogram bin edges (icarus.f:995-1046)
 TAU_EDGES = np.array([0.3, 1.3, 3.6, 9.4, 23.0, 60.0])    # itau 1..7
 PTOP_EDGES = np.array([180., 310., 440., 560., 680., 800.])  # ipres (mb)
@@ -26,8 +28,9 @@ _B0 = 1307.27          # Planck exponent at 10.5 micron (icarus radiances)
 
 def digitize(x, edges):
     """numpy/jnp digitize over increasing edges (bins[i-1] <= x <
-    bins[i]), the edges taken to x's dtype as the reference does."""
-    e = torch.as_tensor(np.asarray(edges), dtype=x.dtype, device=x.device)
+    bins[i]), the edges taken to x's dtype as the reference does (on x's
+    device once, tables.on_device)."""
+    e = on_device(edges, x.device, x.dtype)
     return torch.searchsorted(e, x.contiguous(), right=True)
 
 

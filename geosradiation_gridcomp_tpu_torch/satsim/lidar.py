@@ -14,6 +14,8 @@ surface-first COSP internals; the formulas are direction-adjusted.
 import numpy as np
 import torch
 
+from ..tables import on_device
+
 # lidar constants (lidar_simulator.F90:40-50)
 CMOL = 6.2446e-32      # molecular backscatter coefficient @532nm
 KB = 1.38e-23
@@ -53,8 +55,9 @@ SRBVAL = np.array([S_ATT, S_CLR, 3., 5., 7., 10., 15., 20., 25., 30.,
 
 
 def _f32(a, like):
-    return torch.as_tensor(np.asarray(a), dtype=like.dtype,
-                           device=like.device)
+    """a in like's dtype on like's device, copied there once
+    (tables.on_device): not to be written into."""
+    return on_device(a, like.device, like.dtype)
 
 
 def _kp(re, pol):
@@ -216,5 +219,5 @@ def lidar_stats(pnorm, pmol, refl, land, pplay):
     ocean = torch.clamp(1.0 - land, min=0.0)
     prefl = refl.mean(dim=1) * ocean[:, None] \
         + (1.0 - ocean[:, None]) * UNDEF
-    return dict(cfad_sr=cfad_sr, srbval=_f32(SRBVAL, pnorm),
+    return dict(cfad_sr=cfad_sr, srbval=_f32(SRBVAL, pnorm).clone(),
                 lidarcld=lidarcld, cldlayer=cldlayer, parasolrefl=prefl)

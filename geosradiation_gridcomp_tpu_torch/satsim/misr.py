@@ -12,6 +12,7 @@ ops.
 import numpy as np
 import torch
 
+from ..tables import on_device
 from .icarus import MISSING, TAU_EDGES, _TAUCHK, digitize, histogram
 
 N_MISR_CTH = 16
@@ -25,8 +26,8 @@ def _cth_bin(z_m):
     """MISR CTH bin index (0-based into the 16 bins) for a height in m:
     iMISR_ztop=2 + count(z > 1000*bound[l+1], l=2..16) in Fortran, i.e.
     1-based bin 2..16 -> 0-based 1..15."""
-    edges = torch.as_tensor(1000.0 * CTH_BOUNDARIES_KM[2:-1],
-                            dtype=z_m.dtype, device=z_m.device)  # 14 edges
+    edges = on_device(1000.0 * CTH_BOUNDARIES_KM[2:-1], z_m.device,
+                      z_m.dtype)                                # 14 edges
     return 1 + (z_m[..., None] > edges).sum(dim=-1)
 
 

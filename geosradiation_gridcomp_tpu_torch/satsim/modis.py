@@ -15,6 +15,7 @@ from Steve Platnick, two-stream + adding-doubling NIR reflectance):
 import numpy as np
 import torch
 
+from ..tables import on_device
 from .icarus import digitize, histogram
 
 R_UNDEF = -1.0e30
@@ -138,7 +139,7 @@ def _interpolate_to_min(x, y, yobs):
     hi = torch.clamp(lo + 1, 0, n - 1)
     d_lo = take(diff, lo)
     d_hi = take(diff, hi)
-    xg = torch.as_tensor(np.asarray(x), dtype=y.dtype, device=y.device)
+    xg = on_device(x, y.device, y.dtype)
     x_lo = xg[lo]
     x_hi = xg[hi]
     dd = d_hi - d_lo
@@ -155,7 +156,7 @@ def _retrieve_re(phase, tau, obs_refl):
     for ph, trial in ((PHASE_LIQ, TRIAL_RE_W), (PHASE_UNDET, TRIAL_RE_W),
                       (PHASE_ICE, TRIAL_RE_I)):
         liq = ph != PHASE_ICE
-        tr = torch.as_tensor(trial, dtype=tau.dtype, device=tau.device)
+        tr = on_device(trial, tau.device, tau.dtype)
         pred, _ = _two_stream_rt(tau[..., None], _g_nir(liq, tr),
                                  _ssa_nir(liq, tr))
         re = _interpolate_to_min(trial, pred, obs_refl)

@@ -18,8 +18,11 @@ the llnl CFAD/radar statistics):
 The DSD planes are [points, subcolumns, levels, 85 sizes]: at 8192 x 50
 x 72 one float32 plane is 10 GB. quickbeam_simulator therefore runs the
 points in blocks (each point is independent and nothing is drawn, so the
-result is that of one unblocked call), and skips a class whose mixing
-ratio is nowhere present (its terms are exactly zero).
+result is that of one unblocked call). Which classes it integrates is
+static (`classes`, a tuple): a class absent at a point adds exact zeros
+there, so a caller that knows a class is never present (cosp's convective
+classes) leaves its planes out, and no call reads the device to decide.
+Its tables go to the device once per device (tables.on_device).
 
 Hydrometeor classes default to the GEOS 9-class table
 (cosp_constants.F90:116-127): LSL, LSI, LSR, LSS, CVL, CVI, CVR, CVS,
@@ -32,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from ..tables import load64
+from ..tables import load64, on_device
 
 R_UNDEF = -1.0e30
 R_GROUND = -1.0e20
@@ -240,8 +243,7 @@ def gases_liebe(p_hpa, t_k, rh, f_ghz=FREQ_GHZ):
     d = load64("quickbeam")
 
     def c(name):
-        return torch.as_tensor(d[name], dtype=p_hpa.dtype,
-                               device=p_hpa.device)
+        return on_device(d[name], p_hpa.device, p_hpa.dtype)
     v0 = c("gas_v0")
     a1, a2, a3 = (c("gas_a" + s) for s in "123")
     a4, a5, a6 = (c("gas_a" + s) for s in "456")
@@ -280,7 +282,8 @@ def gases_liebe(p_hpa, t_k, rh, f_ghz=FREQ_GHZ):
 
 
 def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
-                        k2=K2_94, do_ray=False, use_gas_abs=True):
+                        k2=K2_94, do_ray=False, use_gas_abs=True,
+                        classes=None):
     """CloudSat 94 GHz effective reflectivity per subcolumn profile.
 
     Args (TOA-first level axis = "closest to the radar first"):
@@ -288,6 +291,10 @@ def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
       hm_gkg: [nclass, np, ncol, nlev] hydrometeor mixing ratios (g/kg).
       re_um:  [nclass, np, ncol, nlev] effective radii (um); 0 = derive
         (exponential fixed-N0 classes) or use class default.
+      classes: the hydrometeor classes (rows of the 9-class table) that
+        the nclass planes hold, in order, a static tuple; by default
+        range(nclass), as the reference integrates every class. A class
+        left out adds what an absent one would: exact zeros.
 
     The points run in blocks of as many as keep one [block, ncol, nlev,
     ND] float32 plane within PLANE_BYTES.
@@ -295,12 +302,14 @@ def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
     Returns dict: dbze [np, ncol, nlev] attenuated reflectivity (dBZe),
     ze_non (unattenuated), h_atten/g_atten [np, ncol/1, nlev] (dB).
     """
+    classes = tuple(range(hm_gkg.shape[0]) if classes is None else classes)
+    if len(classes) != hm_gkg.shape[0] or len(classes) != re_um.shape[0]:
+        raise ValueError(f"quickbeam_simulator: {len(classes)} classes "
+                         f"for {hm_gkg.shape[0]} hm and {re_um.shape[0]} "
+                         f"re planes")
     npnt = hgt_km.shape[0]
     per_point = hm_gkg[0, 0].numel() * ND * hm_gkg.element_size()
     points_per_block = max(1, PLANE_BYTES // per_point)
-    # a class nowhere present adds exactly zero: skip its planes
-    classes = [tp for tp in range(hm_gkg.shape[0])
-               if bool((hm_gkg[tp] > 1e-12).any())]
     blocks = [_quickbeam_block(
         hgt_km[s:s + points_per_block], p_hpa[s:s + points_per_block],
         t_c[s:s + points_per_block], rh[s:s + points_per_block],
@@ -312,12 +321,12 @@ def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
 
 def _quickbeam_block(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um, classes, k2,
                      do_ray, use_gas_abs):
-    """quickbeam_simulator on one block of points, the given classes."""
+    """quickbeam_simulator on one block of points: plane i holds class
+    classes[i]."""
     hc = hclass()
     dev, fdt = t_c.device, t_c.dtype
-    ql_e, ql_b, qi_e, qi_b = [torch.as_tensor(t, device=dev)
-                              for t in mie_tables()]
-    D = torch.as_tensor(D_GRID_UM, dtype=torch.float32, device=dev)
+    ql_e, ql_b, qi_e, qi_b = [on_device(t, dev) for t in mie_tables()]
+    D = on_device(D_GRID_UM, dev, torch.float32)
     rho_a = (p_hpa * 100.0) / (287.0 * (t_c + 273.15))     # [np, nlev]
 
     it_liq = torch.clamp(torch.round(t_c - float(T_GRID_LIQ[0])).to(
@@ -334,11 +343,11 @@ def _quickbeam_block(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um, classes, k2,
     z_vol = torch.zeros(shape, dtype=fdt, device=dev)
     z_ray = torch.zeros(shape, dtype=fdt, device=dev)
     kr_vol = torch.zeros(shape, dtype=fdt, device=dev)
-    for tp in classes:
+    for i, tp in enumerate(classes):
         cls = {k: float(hc[k][tp]) for k in hc}
         cls["dtype"] = hc["type"][tp]
-        q = hm_gkg[tp]                       # [np, ncol, nlev]
-        n_d = _dsd_number(q, re_um[tp], rho_a[:, None, :], cls, D)
+        q = hm_gkg[i]                        # [np, ncol, nlev]
+        n_d = _dsd_number(q, re_um[i], rho_a[:, None, :], cls, D)
         phase = int(hc["phase"][tp])
         apm, bpm, rho_c = cls["apm"], cls["bpm"], cls["rho"]
         if rho_c > 0 and apm < 0:

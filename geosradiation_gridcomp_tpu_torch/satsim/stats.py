@@ -12,6 +12,8 @@ weighted mean one batched product over model levels.
 import numpy as np
 import torch
 
+from ..tables import on_device
+
 R_UNDEF = -1.0e30
 
 
@@ -37,8 +39,8 @@ def change_vertical_grid(y, zle, zl, zu, log_units=False):
     R_UNDEF where a bin lies entirely below the model bottom or has no
     weight (COSP_CHANGE_VERTICAL_GRID semantics).
     """
-    zl = torch.as_tensor(np.asarray(zl), dtype=y.dtype, device=y.device)
-    zu = torch.as_tensor(np.asarray(zu), dtype=y.dtype, device=y.device)
+    zl = on_device(zl, y.device, y.dtype)
+    zu = on_device(zu, y.device, y.dtype)
     xu = zle[:, :-1]                     # layer tops   [np, nlev]
     xl = zle[:, 1:]                      # layer bottoms
     # interval overlap (the reference's four cases in one expression)

@@ -32,8 +32,12 @@ sharding: the refresh over column_mesh() and over two shards on the one
 card bitwise equal to the unsharded one, K1-K6 launched; StagedFeed's
 round trip through pinned memory and a side stream. The satellite
 simulators: cosp_simulator on the card against the CPU (integers exact,
-fill values in place, counts exact, floats <= 5e-5, no kernel), and the
-radar's point blocks bitwise equal to one unblocked call. The captured
+fill values in place, counts exact, floats <= 5e-5, no kernel), the
+radar's point blocks bitwise equal to one unblocked call, and
+cosp_simulator captured at 64 points x 50 subcolumns x 72 levels: replays
+at keys 11 and 12 bitwise equal to the eager body under
+disable_capture(), one graph for the key, both under
+set_sync_debug_mode("error"), a key off the inputs' device refused. The captured
 step entries at 64 x 72: replays bitwise equal to the eager bodies at two
 doy values and on two scenes, K1-K6 counted once per replay, outputs of
 successive calls sharing no storage, a replay and the eager bodies
@@ -48,6 +52,9 @@ disable_capture(); rats_refresh's replays bitwise equal to its eager
 run; each replay and eager body under set_sync_debug_mode("error"); the
 step refresh's capture records no rrtmg_lw / rrtmg_sw graph.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -104,9 +111,14 @@ from geosradiation_gridcomp_tpu_torch.parallel.distributed import (
     StagedFeed, run_steps_overlapped)
 from geosradiation_gridcomp_tpu_torch.parallel.sharding import (
     column_mesh, run_sharded, shard_columns)
-from geosradiation_gridcomp_tpu_torch.satsim import (SatsimInputs,
+from geosradiation_gridcomp_tpu_torch.satsim import (SatsimConfig,
+                                                     SatsimInputs,
                                                      cosp_simulator, radar)
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import satsim_inputs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -852,6 +864,41 @@ def test_quickbeam_blocks_on_the_card(dev, monkeypatch):
     parts = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
     for k in whole:
         assert torch.equal(parts[k], whole[k]), k
+
+
+def test_cosp_replays_bitwise_equal_eager(dev):
+    """cosp_simulator at 64 points x 50 subcolumns x 72 levels (chip_smoke's
+    satsim scene, graupel in the snow's levels) captured once: replays at
+    keys 11 and 12 bitwise equal to the eager body under
+    disable_capture() (and the two keys' outputs not equal: the key is
+    traced), one graph for config None and SatsimConfig(), no kernel
+    launched, replay and eager body under set_sync_debug_mode("error");
+    a key on the CPU with inputs on the card is refused."""
+    inp = satsim_inputs(torch, 64, dev)
+    inp = inp._replace(qg=0.5 * inp.qs)
+    keys = [threefry.key(s, device=dev) for s in (11, 12)]
+    before = len(cosp_simulator.graphs)
+    cosp_simulator(keys[0], inp)                    # warm-up + capture
+    assert len(cosp_simulator.graphs) == before + 1
+    outs = []
+    for key in keys:
+        LAUNCHES.clear()
+
+        def eager(key=key):
+            with disable_capture():
+                return cosp_simulator(key, inp)
+        got, want = _sync_free(
+            lambda: cosp_simulator(key, inp, SatsimConfig()), eager)
+        assert not LAUNCHES
+        want = dict(_leaves(want))
+        for name, a in _leaves(got):
+            assert a.dtype == want[name].dtype, name
+            assert torch.equal(a, want[name]), name
+        outs.append(got)
+    assert len(cosp_simulator.graphs) == before + 1
+    assert not torch.equal(outs[0]["frac_out"], outs[1]["frac_out"])
+    with pytest.raises(ValueError, match="lie on"):
+        cosp_simulator(keys[0].cpu(), inp)
 
 
 STEP_KERNELS = ("mcica_optics_lw", "mcica_optics_sw", "taumol_lw", "rtrnmc",
