@@ -46,18 +46,39 @@ calls must run under it, since a replay calls no Python wrapper.
 kernels.build.LAUNCHES counts each kernel once per call on either route:
 the wrapper calls made during the warm-up and the capture are taken back
 out, and each replay adds what its capture recorded.
+
+What a call costs on the host: every call that takes the graph keeps
+time.perf_counter stamps at the boundaries of its phases in a ring of
+floats written in place (`recent_calls()` reads it as CallRecords: the
+entry, a call id, the key's id, the phases and their stamps): `bind`
+(arguments bound, routed and keyed), `capture` (a new key's static
+buffers, warm-up and capture), `copy_in` (StaticIO.load), `replay`
+(graph.replay and its LAUNCHES update) and `clone_out`. Only while a
+torch.profiler records does each phase also become a range
+"<entry>/<phase>" (`radiation_update/copy_in`), so that a trace can name
+what the host did while the device idled; the `bind` range opens once
+the route has sent the call to its graph, so an eager call opens none.
+Nothing of it runs inside a graph, reads a tensor back or synchronises;
+a nested or eager call records nothing. `counts()` gives, per entry, the
+host seconds of its captures and, per key, the copies a call makes
+(tensors copied in, scalars filled or copied, tensors cloned out).
 """
 
 import contextlib
 import functools
 import inspect
+import itertools
 import numbers
+import struct
 import threading
+import time
+import weakref
+from typing import NamedTuple
 
 import torch
 
 from ..kernels.build import LAUNCHES
-from ..parallel.sharding import tree_map
+from ..parallel.sharding import tree_leaves, tree_map
 
 # the structure of a traced leaf
 TENSOR, SCALAR = "tensor", "scalar"
@@ -69,6 +90,89 @@ _NESTING = threading.local()
 
 def _depth():
     return getattr(_NESTING, "depth", 0)
+
+
+class CallRecord(NamedTuple):
+    """One captured call: phases[i] ran from stamps[i] to stamps[i + 1]
+    (time.perf_counter seconds)."""
+    entry: str
+    call: int
+    key: int
+    phases: tuple
+    stamps: tuple
+
+    def durations(self):
+        """Seconds of each phase, by name."""
+        return {p: b - a for p, a, b in
+                zip(self.phases, self.stamps, self.stamps[1:])}
+
+
+PHASES = ("bind", "capture", "copy_in", "replay", "clone_out")
+REPLAYED = tuple(p for p in PHASES if p != "capture")
+
+# The ring of captured calls, about 30 s of the heartbeat loop's ~280
+# calls a second: call i's slot is i % _SLOTS, _ENTRY_OF[slot] its entry's
+# name, and the slot's _SLOT.size bytes of _STAMPS its key's id and six
+# stamps as doubles: at the call, the key found, the capture done (the
+# key found again when the call captured nothing), and copy-in, replay
+# and clone-out done.
+_SLOTS, _SLOT = 1 << 14, struct.Struct("7d")
+_ENTRY_OF = [None] * _SLOTS
+_STAMPS = bytearray(_SLOT.size * _SLOTS)
+_CALLS = 0
+_KEY_IDS = itertools.count()
+_ENTRIES = weakref.WeakSet()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def _record(entry, key, t0, t1, t2, t3, t4, t5):
+    """Keep one captured call in the ring."""
+    global _CALLS
+    slot = _CALLS % _SLOTS
+    _CALLS += 1
+    _ENTRY_OF[slot] = entry
+    _SLOT.pack_into(_STAMPS, slot * _SLOT.size, key, t0, t1, t2, t3, t4, t5)
+
+
+def recent_calls():
+    """The CallRecords of the latest captured calls, oldest first."""
+    out = []
+    for call in range(max(0, _CALLS - _SLOTS), _CALLS):
+        slot = call % _SLOTS
+        key, *stamps = _SLOT.unpack_from(_STAMPS, slot * _SLOT.size)
+        phases = PHASES
+        if stamps[2] == stamps[1]:
+            del stamps[2]
+            phases = REPLAYED
+        out.append(CallRecord(_ENTRY_OF[slot], call, int(key), phases,
+                              tuple(stamps)))
+    return tuple(out)
+
+
+def counts():
+    """Captured.counts() of every captured entry, by entry name."""
+    return {entry.__name__: entry.counts() for entry in list(_ENTRIES)}
+
+
+class _Ranges:
+    """While a profiler records: a range "<entry>/<phase>" over each phase
+    of one captured call, each ending where the next begins."""
+
+    __slots__ = ("entry", "open")
+
+    def __init__(self, entry):
+        self.entry, self.open = entry, None
+        self.begin("bind")
+
+    def begin(self, phase):
+        self.end()
+        self.open = torch.profiler.record_function(f"{self.entry}/{phase}")
+        self.open.__enter__()
+
+    def end(self):
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.open = None
 
 
 @contextlib.contextmanager
@@ -149,6 +253,7 @@ class StaticIO:
             if _is_scalar(x) else torch.empty(x.shape, dtype=x.dtype,
                                               device=device)
             for x in leaves]
+        self.scalars = sum(map(_is_scalar, leaves))
         it = iter(self.buffers)
         self.arguments = {n: unflatten(s, it)
                           for n, s in self.structures.items()}
@@ -177,8 +282,9 @@ def graph_pool(device):
 
 
 class _Graph:
-    """One captured key: its StaticIO, graph, static outputs and the
-    launches its capture recorded."""
+    """One captured key: its StaticIO, graph, static outputs, the
+    launches its capture recorded, its id and the copies a call of it
+    makes."""
 
     def __init__(self, body, bound, io, device):
         bound.arguments.update(io.arguments)
@@ -203,6 +309,10 @@ class _Graph:
             LAUNCHES.clear()
             LAUNCHES.update(before)
         self.io = io
+        self.id = next(_KEY_IDS)
+        self.copies = dict(copies=len(io.buffers) - io.scalars,
+                           fills=io.scalars,
+                           clones=len(tree_leaves(self.out)))
 
     def replay(self):
         self.graph.replay()
@@ -248,8 +358,10 @@ class Captured:
         self.route = route
         self.signature = inspect.signature(body)
         self.graphs = {}
+        self.capture_s = 0.0
         functools.update_wrapper(self, body)
         self.__name__ = body.__name__.removesuffix("_eager")
+        _ENTRIES.add(self)
 
     def traced(self, arguments):
         return {n: v for n, v in arguments.items()
@@ -271,9 +383,18 @@ class Captured:
         return static, tuple((n, flatten(v, leaves))
                              for n, v in self.traced(arguments).items())
 
+    def counts(self):
+        """The host seconds of every capture of this entry (StaticIO,
+        warm-up and capture; dropped keys too), and per live key, by its
+        id, the copies a call makes: tensors copied in, scalars filled or
+        copied, tensors cloned out."""
+        return dict(capture_s=self.capture_s,
+                    keys={g.id: dict(g.copies) for g in self.graphs.values()})
+
     def __call__(self, *args, **kwargs):
         if _depth():
             return self.body(*args, **kwargs)
+        t0 = time.perf_counter()
         bound = self.signature.bind(*args, **kwargs)
         bound.apply_defaults()
         traced = self.traced(bound.arguments)
@@ -282,16 +403,39 @@ class Captured:
         arguments = self.route(dict(bound.arguments), device)
         if arguments is None:
             return self.body(*args, **kwargs)
-        key = self.key(arguments)
-        graph = self.graphs.get(key)
-        if graph is None:
-            io = StaticIO(traced, device)
-            io.load(traced)
-            bound.arguments.update(arguments)
-            with torch.cuda.device(device):
-                graph = _Graph(self.body, bound, io, device)
-            self.graphs[key] = graph
-        return graph.io(traced, graph.replay)
+        ranges = _Ranges(self.__name__) if _profiling() else None
+        try:
+            key = self.key(arguments)
+            graph = self.graphs.get(key)
+            t1 = t2 = time.perf_counter()
+            if graph is None:
+                if ranges:
+                    ranges.begin("capture")
+                io = StaticIO(traced, device)
+                io.load(traced)
+                bound.arguments.update(arguments)
+                with torch.cuda.device(device):
+                    graph = _Graph(self.body, bound, io, device)
+                self.graphs[key] = graph
+                t2 = time.perf_counter()
+                self.capture_s += t2 - t1
+            if ranges:
+                ranges.begin("copy_in")
+            graph.io.load(traced)
+            t3 = time.perf_counter()
+            if ranges:
+                ranges.begin("replay")
+            out = graph.replay()
+            t4 = time.perf_counter()
+            if ranges:
+                ranges.begin("clone_out")
+            out = clone_tree(out)
+            t5 = time.perf_counter()
+        finally:
+            if ranges:
+                ranges.end()
+        _record(self.__name__, graph.id, t0, t1, t2, t3, t4, t5)
+        return out
 
 
 def captured(body, static_argnames, route=on_card):
