@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels (K1 McICA + LW cloud optics, K2 McICA + SW
 cloud optics, K3 taumol-LW, K4 rtrnmc, K5 taumol-SW, K6 spcvmc, K7 raw
-McICA draws, P1 forward fill, P2 table gathers, P3 taumol-LW bisection)
+McICA draws, K8 RRTMGP's McICA draws, P1 forward fill, P2 table gathers,
+P3 taumol-LW bisection)
 from geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, one
 nvcc per source side by side, then:
 
@@ -113,25 +114,28 @@ nvcc per source side by side, then:
 8. rrtmgp phase: radiation_refresh + radiation_update with the RRTMGP SW
    and LW schemes through the RRTMG-reduced facade at 8192 x 72 through
    the captured entries: K3, K4 and K5 must launch exactly once each per
-   replay and nothing else (K5 on all 8192 columns: the facade does not
-   pack daylight); the first call's time and the pool's growth; K3 and
-   K5 within relmax 5e-4 of their twins in every band and K4 in every
-   output, on the inputs the eager body gives them (recorded there: a
-   replay calls no wrapper); the replays bitwise equal to the eager body
-   at doy 172 and 172.001; every IrradState field and LW export within
-   5e-5 of plain=True on the card, every SolarState field and SW export
-   within 5e-4 with at most 0.5 % of columns beyond 5e-5, the heating
-   rates in the reference's form; SW net / TOA insolation in [0, 1] and
-   OLR in 150-350 W/m^2; replay and eager body under
-   set_sync_debug_mode("error"); the clear-sky difference from the RRTMG
-   step (flcn, flc); eager, captured, captured, eager: wall (median of
-   3) and CUDA-event time; the plain refresh's wall, the McICA draws'
-   time (_gen_max_ran_mask, SW and LW) and the peak device memory of each
-   route; then the phase's graphs are dropped;
+   replay, K8 twice (SW, LW) and nothing else (K5 and K8 on all 8192
+   columns: the facade does not pack daylight); the first call's time
+   and the pool's growth; K3 and K5 within relmax 5e-4 of their twins in
+   every band and K4 in every output, and K8's mask and zcw bitwise
+   equal to its twin's for both g-point counts, on the inputs the eager
+   body gives them (recorded there: a replay calls no wrapper), with
+   K8's route, device, plain and bound times; the replays bitwise equal
+   to the eager body at doy 172 and 172.001; every IrradState field and
+   LW export within 5e-5 of plain=True on the card, every SolarState
+   field and SW export within 5e-4 with at most 0.5 % of columns beyond
+   5e-5, the heating rates in the reference's form; SW net / TOA
+   insolation in [0, 1] and OLR in 150-350 W/m^2; replay and eager body
+   under set_sync_debug_mode("error"); the clear-sky difference from the
+   RRTMG step (flcn, flc); eager, captured, captured, eager: wall
+   (median of 3) and CUDA-event time; the plain refresh's wall and the
+   peak device memory of each route; then the phase's graphs are
+   dropped;
 9. rrtmgp_native phase: the same through the native engine, on a
    synthetic 2-band coefficient set written to build/ (a numpy copy of
    the reference's tests/test_rrtmgp_engine.py:make_kdist), at 8192 x 72
-   through the captured entries: no kernel may launch, olrb has the
+   through the captured entries: K8 must launch twice (SW, LW) and no
+   other kernel, olrb has the
    set's 2 bands, every state field and export within 5e-5 of the CPU
    on the first 256 columns (the grazing-sun columns, cos zenith under
    1e-4, reported apart: there the reference's two mu0 floors make the
@@ -205,9 +209,10 @@ rats_update and of cosp_simulator, replayed and eager.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
-profiling; launches_per_refresh for the step kernels; launches_by_path
-on every path that launched it, K1, K3 and K4 also on rats, K3, K4 and
-K5 also on rrtmgp, K1-K6 also on driver and parallel), error,
+profiling, and K8's rrtmgp; launches_per_refresh for the step kernels
+and K8; launches_by_path on every path that launched it, K1, K3 and K4
+also on rats, K3, K4 and K5 also on rrtmgp, K8 also on rrtmgp_native,
+K1-K6 also on driver and parallel), error,
 times, bound and library time, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
@@ -1404,25 +1409,24 @@ def chou_phase(torch, dev, profile=False):
     drop_graphs(torch, dev, cfg)
 
 
-def rrtmgp_phase(torch, step, profile=False):
+def rrtmgp_phase(torch, step, draw, profile=False):
     """The RRTMGP facade at full width through the captured
     radiation_refresh + radiation_update: K3, K4 and K5 once each per
-    replay, each held to its twin on the inputs the eager body
-    (op_by_op) gives it; the replays bitwise equal to the eager body at
-    two doy values; the refresh against plain=True on the card; physics;
-    replay and eager body sync-free; both routes' times, the first call,
-    the pool and the peak memory (with profile, where its time goes).
-    Returns the launches of the captured run."""
+    replay and K8 twice, K3-K5 each held to its twin on the inputs the
+    eager body (op_by_op) gives it and K8 bitwise on both of its calls'
+    (mcica_gmr_result; draw: one threefry draw's instructions by class);
+    the replays bitwise equal to the eager body at two doy values; the
+    refresh against plain=True on the card; physics; replay and eager
+    body sync-free; both routes' times, the first call, the pool and the
+    peak memory (with profile, where its time goes). Returns the launches
+    of the captured run and K8's result."""
     from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
                                                          Scheme)
     from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
         mean_cos_zenith
-    from geosradiation_gridcomp_tpu_torch.driver.radiation import (
-        _common_derived)
     from geosradiation_gridcomp_tpu_torch.driver.step import (
         radiation_refresh, radiation_refresh_eager, radiation_update)
     from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
-    from geosradiation_gridcomp_tpu_torch.models.rrtmg.lw import mid_heights
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
     from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
         NGS_LW, taumol_lw)
@@ -1454,7 +1458,8 @@ def rrtmgp_phase(torch, step, profile=False):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the rrtmgp path: {launches}")
-    want = dict.fromkeys(("taumol_lw", "taumol_sw", "rtrnmc"), 1)
+    want = dict(dict.fromkeys(("taumol_lw", "taumol_sw", "rtrnmc"), 1),
+                mcica_gmr=2)
     if launches != want:
         raise AssertionError(f"rrtmgp path launched {launches}, not {want}")
     print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
@@ -1464,13 +1469,16 @@ def rrtmgp_phase(torch, step, profile=False):
     # replay calls no wrapper), to hold it to its twin
     wrapped = {"taumol_lw": (kdist, "taumol_lw_fast"),
                "taumol_sw": (kdist, "taumol_sw_fast"),
-               "rtrnmc": (rte, "rtrnmc_fast")}
+               "rtrnmc": (rte, "rtrnmc_fast"),
+               "mcica_gmr": (scheme, "_gen_max_ran_mask")}
     saved = {k: getattr(m, a) for k, (m, a) in wrapped.items()}
-    calls = {}
+    calls, draw_calls = {}, {}
 
     def recorder(name):
         def wrapper(*args, **kwargs):
             calls.setdefault(name, (args, kwargs))
+            if name == "mcica_gmr":     # SW and LW, told apart by ngpt
+                draw_calls.setdefault(args[5], args[:7])
             return saved[name](*args, **kwargs)
         return wrapper
     try:
@@ -1480,6 +1488,7 @@ def rrtmgp_phase(torch, step, profile=False):
     finally:
         for k, (m, a) in wrapped.items():
             setattr(m, a, saved[k])
+    del saved["mcica_gmr"], calls["mcica_gmr"]
     gate("rrtmgp replay vs eager body: leaves not bitwise equal",
          unequal_leaves(torch, (sol, irr), eager_states), 0)
     del eager_states
@@ -1510,6 +1519,8 @@ def rrtmgp_phase(torch, step, profile=False):
           f"{ms['taumol_lw']:.4f}, K4 {ms['rtrnmc']:.4f}, K5 "
           f"{ms['taumol_sw']:.4f} ms")
     del calls, args, kw
+    k8 = mcica_gmr_result(torch, draw_calls, draw)
+    del draw_calls
 
     sol_p, irr_p = refresh(plain=True)
     ref = (sol_p, irr_p, update((sol_p, irr_p)))
@@ -1546,14 +1557,8 @@ def rrtmgp_phase(torch, step, profile=False):
     route_times(torch, "rrtmgp radiation_refresh", refresh, eager_refresh,
                 3)
     t_plain = walls(torch, lambda: refresh(plain=True), 1)
-    play = _common_derived(inp)[0]
-    zm = mid_heights(play, inp.t, inp.ple[..., -1])
-    draws = {ng: time_ms(torch, lambda: scheme._gen_max_ran_mask(
-        play, zm, inp.lats, DOY, inp.fcld, ng, mods["lw"].zcw_cols(1)), 2)
-        for ng in (112, 140)}
-    print(f"  plain refresh {t_plain[0] * 1e3:.1f} ms; the McICA draws "
-          f"(_gen_max_ran_mask) SW {draws[112]:.1f} + LW {draws[140]:.1f} "
-          f"ms by CUDA events; peak device memory of one refresh: eager "
+    print(f"  plain refresh {t_plain[0] * 1e3:.1f} ms; peak device "
+          f"memory of one refresh: eager "
           f"{peak_mib(torch, eager_refresh):.1f} MiB, replayed "
           f"{peak_mib(torch, refresh):.1f} MiB beside the graph pool's "
           f"{pool_bytes(torch, dev) / 2**20:.1f} MiB")
@@ -1563,13 +1568,71 @@ def rrtmgp_phase(torch, step, profile=False):
         device_profile(torch, "RRTMGP refresh, eager", eager_refresh, 1,
                        top=12)
     drop_graphs(torch, dev, cfg)
-    return launches
+    return launches, k8
+
+
+def mcica_gmr_result(torch, calls, draw):
+    """K8 on the inputs the RRTMGP refresh's eager body gave
+    _gen_max_ran_mask (calls: ngpt -> its first seven arguments), the SW's
+    and the LW's: mask and zcw held bitwise to the plain twin on each, and
+    the route's, the kernel's and the twin's times and the bound summed
+    over the two, a refresh's draws. The bound: the threefry draws K8
+    cannot skip (per g-point of a cloudy column, 4 x depth - 2, or
+    2 x depth - 1 without the class table, depth reaching its lowest
+    cloudy layer; 4 for its key), or reading cldf, alpha and rcorr, play's
+    lowest four layers and the table, and writing the outputs."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmgp.scheme import \
+        _gen_max_ran_mask
+
+    r = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+             library_ms=None)
+    moved = work = 0
+    for ng in sorted(calls):
+        args = calls[ng]
+        cldf, cond = args[4], args[6] is not None
+        print(f"K8 (mcica_gmr) at {tuple(cldf.shape)} x {ng}:")
+        got = _gen_max_ran_mask(*args)
+        want = _gen_max_ran_mask(*args, plain=True)
+        for name, a, b in zip(("cld_mask", "zcw"), got, want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"K8 {name}: {a.dtype}{tuple(a.shape)}"
+                                     f" against {b.dtype}{tuple(b.shape)}")
+            gate(f"K8 {name} vs its twin: unequal", float((a != b).sum()),
+                 0)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("K8 is not bitwise equal to its twin")
+        moved += nbytes(got) + 3 * nbytes(cldf) + 16 * cldf.shape[0] + (
+            nbytes(args[6]) if cond else 0)
+        del got, want
+        cloudy = cldf > 0.0
+        cols = cloudy.any(dim=1)
+        depth = cldf.shape[1] - cloudy.flip(1).int().argmax(dim=1)
+        per_layer = 4 if cond else 2
+        work += ng * int((per_layer * depth - per_layer // 2)[cols].sum()) \
+            + 4 * int(cols.sum())
+        run = lambda: _gen_max_ran_mask(*args)
+        ms = time_ms(torch, run, 20)
+        dev_ms = kernel_device_ms(torch, "mcica_gmr", run)
+        plain_ms = time_ms(torch, lambda: _gen_max_ran_mask(*args,
+                                                            plain=True), 2)
+        print(f"  route {ms:.4f} ms (overlap parameters included), kernel "
+              f"device {dev_ms:.4f} ms (plain {plain_ms:.2f} ms)")
+        r["ms"] += ms
+        r["device_ms"] += dev_ms
+        r["plain_ms"] += plain_ms
+    r["bound_ms"], r["bound_by"] = bound(
+        moved, seconds=issue_seconds(draw_counts(draw, work), 1))
+    print(f"  K8 a refresh (SW + LW): route {r['ms']:.4f} ms, device "
+          f"{r['device_ms']:.4f} ms (plain {r['plain_ms']:.1f} ms), bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} ("
+          f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of it)")
+    return r
 
 
 def rrtmgp_native_phase(torch, step, profile=False):
     """RRTMGP through the native engine (an ingested coefficient set: the
     synthetic one, written to build/) at full width through the captured
-    radiation_refresh + radiation_update, where no kernel may launch;
+    radiation_refresh + radiation_update, where K8 alone may launch, twice;
     against the same functions on the CPU on the first 256 columns; the
     replays bitwise equal to the eager body (op_by_op) at two doy values;
     replay and eager body sync-free; both routes' times, the first call,
@@ -1618,7 +1681,7 @@ def rrtmgp_native_phase(torch, step, profile=False):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the rrtmgp_native path: {launches}")
-    if launches:
+    if launches != {"mcica_gmr": 2}:
         raise AssertionError(f"the native path launched {launches}")
     print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
           f"graph pool +{pool_mib:.1f} MiB for the key")
@@ -2405,7 +2468,7 @@ def off_kernel_path_calls(run):
 _CSRC = "geosradiation_gridcomp_tpu_torch/csrc/"
 _REF = "geosradiation_gridcomp_tpu/"
 # kernel -> (source, the TPU kernel it replaces, the path that must launch
-# it: step, verify or profiling, its CUDA function's name)
+# it: step, verify, profiling or rrtmgp, its CUDA function's name)
 SOURCES = {
     "mcica_optics_lw": (_CSRC + "mcica_lw.cu",
                         _REF + "ops/mcica_pallas.py:367", "step",
@@ -2441,6 +2504,10 @@ SOURCES = {
     "taumol_lw_bisect": (_CSRC + "taumol_lw_bisect.cu",
                          "tools/profiling/taumol_lw_bisect.py:58",
                          "profiling", "taumol_lw_kernel"),
+    # K8 replaces plain jnp code, not a Pallas kernel
+    "mcica_gmr": (_CSRC + "mcica_gmr.cu",
+                  _REF + "models/rrtmgp/scheme.py:93", "rrtmgp",
+                  "mcica_gmr_kernel"),
 }
 
 
@@ -2506,8 +2573,8 @@ def main():
         require_launched(paths[path], path)
     paths["rats"] = timed("rats", rats_phase, torch, step, args.profile)
     timed("chou", chou_phase, torch, dev, args.profile)
-    paths["rrtmgp"] = timed("rrtmgp", rrtmgp_phase, torch, step,
-                            args.profile)
+    paths["rrtmgp"], results["mcica_gmr"] = timed(
+        "rrtmgp", rrtmgp_phase, torch, step, draw, args.profile)
     paths["rrtmgp_native"] = timed("rrtmgp_native", rrtmgp_native_phase,
                                    torch, step, args.profile)
     paths["driver"] = timed("driver", driver_phase, torch, step,
@@ -2526,8 +2593,8 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             path=path, launches=paths[path][name],
-            launches_per_refresh=paths[path][name] if path == "step"
-            else 0,
+            launches_per_refresh=paths[path][name]
+            if path in ("step", "rrtmgp") else 0,
             launches_by_path={p: n[name] for p, n in paths.items()
                               if n.get(name)},
             max_abs_err=r["max_abs_err"], ms=r["ms"],

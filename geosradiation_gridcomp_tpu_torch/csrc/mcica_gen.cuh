@@ -1,5 +1,7 @@
 // McICA stochastic cloud subcolumn generator shared by K1 (mcica_lw.cu),
-// K2 (mcica_sw.cu) and, through its raw draws, K7 (mcica_raw.cu).
+// K2 (mcica_sw.cu) and, through its raw draws, K7 (mcica_raw.cu). K8
+// (mcica_gmr.cu, RRTMGP's draws) takes its threefry, the column state key
+// and the zcw lookup.
 //
 // Computes what the CPU oracle's generate_stochastic_clouds computes for one
 // subcolumn (g-point) of one column: the column's 4 threefry subkeys from
@@ -86,6 +88,22 @@ __device__ __forceinline__ Words column_subkey(const float* play, int nlay,
         k1 = w.w1;
     }
     return threefry2(k0, k1, static_cast<uint32_t>(i));
+}
+
+// A column's state key, as ops/mcica.py:state_seed_key derives it: key
+// (0, 0) folded with the four state seeds in the seed order, the fold of
+// column_subkey without its split.
+__device__ __forceinline__ Words column_state_key(const float* play,
+                                                  int nlay, int seed_order) {
+    Words k{0u, 0u};
+    for (int j = 0; j < 4; ++j) {
+        const int s = (seed_order >> (2 * j)) & 3;
+        const float p = __fmul_rn(play[nlay - 1 - s], 100.0f);
+        const float v = __fadd_rn(__fmul_rn(__fsub_rn(p, floorf(p)),
+                                            2147483648.0f), 1.0f);
+        k = threefry2(k.w0, k.w1, __float2uint_rz(v));
+    }
+    return k;
 }
 
 // Threads 0..3 of a column (t = the thread's index within the column) each

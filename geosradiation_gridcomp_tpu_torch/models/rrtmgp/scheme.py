@@ -6,10 +6,11 @@ GC's default path) -> generic rte solve.
 
 Port of geosradiation_gridcomp_tpu/models/rrtmgp/scheme.py. Without a
 coefficient file the RRTMG-reduced facade serves as the k-distribution:
-its gas optics run kernels K3 (LW) and K5 (SW) and rte_lw runs K4, each on
-CUDA tensors (the plain twins for CPU tensors or when `plain`); the McICA
-draws, the band cloud optics and rte_sw are plain PyTorch. With one, the
-native engine (gas_optics.py, rte_native.py) runs, all plain PyTorch.
+its gas optics run kernels K3 (LW) and K5 (SW), rte_lw runs K4 and the
+McICA draws run K8 (ops/mcica_gmr_cuda.py), each on CUDA tensors (the
+plain twins for CPU tensors or when `plain`); the band cloud optics and
+rte_sw are plain PyTorch. With one, the native engine (gas_optics.py,
+rte_native.py) runs, plain PyTorch but for K8's draws on CUDA tensors.
 
 Cloud optics: the band-resolved properties come from the RRTMG scheme's
 Ebert-Curry/Key/Fu + Hu-Stamnes parameterizations (the RRTMGSW / RRTMGLW
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ...driver.compiled import captured, with_kernels
-from ...ops import threefry
+from ...ops import mcica_gmr_cuda, threefry
 from ...ops.mcica import (_sigma_class, column_blocks, overlap_params,
                           state_seed_key, zcw_lookup_class)
 from ...tables import on_device
@@ -110,7 +111,8 @@ def _band_cloud_optics_lw(ciwp, clwp, rei, rel, tables, iceflag, liqflag):
             + torch.where(cl > 0.0, cl * absliq, zero))
 
 
-def _gen_max_ran_mask(play, zm, alat, doy, cldf, ngpt, zcw_cols):
+def _gen_max_ran_mask(play, zm, alat, doy, cldf, ngpt, zcw_cols,
+                      plain=False):
     """GEN_MAX_RAN_OVERLAP cloud mask + condensate scaling
     (GEOS_SolarGridComp.F90:5186-5299): exponential layer-pair
     correlations (Oreopoulos-2012 decorrelation lengths) for presence
@@ -124,8 +126,17 @@ def _gen_max_ran_mask(play, zm, alat, doy, cldf, ngpt, zcw_cols):
     (3, 1000) class columns of the condensate PDF, or None for none
     (inhm 0: zcw = 1). Returns cld_mask bool [ncol, nlay, ngpt] and zcw
     [ncol, nlay, ngpt] (zero where clear).
+
+    CUDA tensors take kernel K8 (ops/mcica_gmr_cuda.py), the same values
+    bit for bit, unless plain; CPU tensors and plain run the body below,
+    K8's plain twin.
     """
-    alpha, rcorr = (x[:, 1:] for x in overlap_params(zm, alat, doy))
+    alpha, rcorr = overlap_params(zm, alat, doy)
+    if not plain and cldf.device.type == "cuda":
+        return mcica_gmr_cuda.gen_max_ran_mask(
+            play.contiguous(), alpha, rcorr, cldf.contiguous(), ngpt,
+            zcw_cols)
+    alpha, rcorr = alpha[:, 1:], rcorr[:, 1:]
     keys = state_seed_key(play)                      # [ncol, 2]
     ncol, nlay = play.shape
     sigcls = _sigma_class(cldf)[:, None, :]
@@ -214,7 +225,8 @@ def rrtmgp_sw_eager(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
 
     lims = kd.get_band_lims_gpoint()
     cld_mask, zcw = _gen_max_ran_mask(play, zm, alat, doy, cldf,
-                                      kd.get_ngpt(), _zcw_cols(sw, inhm))
+                                      kd.get_ngpt(), _zcw_cols(sw, inhm),
+                                      plain)
     tau_b, ssa_b, g_b = _band_cloud_optics_sw(
         ciwp, clwp, rei, rel, sw.cloud_tables, iceflag, liqflag)
     props = draw_samples(cld_mask, dict(tau=tau_b, ssa=ssa_b, g=g_b), lims)
@@ -318,7 +330,8 @@ def rrtmgp_lw_eager(lw, ple, play, tlay, tsfc, emis,
 
     lims = kd.get_band_lims_gpoint()
     cld_mask, zcw = _gen_max_ran_mask(play, zm, alat, doy, cldf,
-                                      kd.get_ngpt(), _zcw_cols(lw, inhm))
+                                      kd.get_ngpt(), _zcw_cols(lw, inhm),
+                                      plain)
     tau_b = _band_cloud_optics_lw(ciwp, clwp, rei, rel, lw.cloud_tables,
                                   iceflag, liqflag)
     tau_cld = draw_samples(cld_mask, dict(tau=tau_b), lims)["tau"] * zcw

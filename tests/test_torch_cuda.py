@@ -25,9 +25,12 @@ band on each gas's inputs; the Chou-Suarez
 refresh + update on the card against the same functions on the CPU
 <= 5e-5 (no kernel launched); a checkpoint loaded onto the card, and a
 run restarted from it bitwise equal to the uninterrupted run. RRTMGP: the
-facade refresh launches K3, K4 and K5 once each and nothing else, its
-states against plain=True at the step's gates; the native engine on the
-card launches no kernel and is within 5e-5 of the CPU. The column
+facade refresh launches K3, K4 and K5 once each, K8 twice (SW, LW) and
+nothing else, its states against plain=True at the step's gates; the
+native engine on the card launches K8 twice and nothing else and is
+within 5e-5 of the CPU. K8 at 8,100 x 72 bitwise equal to its plain twin
+for 112 and 140 g-points, with and without the condensate PDF, sync-free;
+rrtmgp_sw / rrtmgp_lw launch it once per captured call. The column
 sharding: the refresh over column_mesh() and over two shards on the one
 card bitwise equal to the unsharded one, K1-K6 launched; StagedFeed's
 round trip through pinned memory and a side stream. The satellite
@@ -468,14 +471,16 @@ def test_step_runs_the_kernels(case):
 
 
 def test_rrtmgp_refresh_runs_k3_k4_k5(case):
-    """The RRTMGP facade: K3, K4 and K5 once each per refresh, no other
-    kernel; the states against plain=True at the step's gates."""
+    """The RRTMGP facade: K3, K4 and K5 once each per refresh and K8
+    twice (SW, LW), no other kernel; the states against plain=True at the
+    step's gates."""
     cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
     kw = dict(config=cfg, ict=69, icb=71, sw=case["sw"], lw=case["lw"])
     LAUNCHES.clear()
     sol, irr = step.radiation_refresh(case["inp"], DOY, 12.0, **kw)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {"taumol_lw": 1, "rtrnmc": 1, "taumol_sw": 1}
+    assert dict(LAUNCHES) == {"taumol_lw": 1, "rtrnmc": 1, "taumol_sw": 1,
+                              "mcica_gmr": 2}
     sol_p, irr_p = step.radiation_refresh(case["inp"], DOY, 12.0,
                                           plain=True, **kw)
     for f in irr._fields:
@@ -484,9 +489,54 @@ def test_rrtmgp_refresh_runs_k3_k4_k5(case):
         assert relmax(getattr(sol, f), getattr(sol_p, f)) <= 5e-4, f
 
 
+@pytest.mark.parametrize("ngpt", [112, 140])
+def test_k8_equals_plain_at_c90(dev, ngpt):
+    """K8 at 8,100 x 72 (a C90 face) bitwise equal to its plain twin,
+    with the condensate PDF (inhm 1) and without (inhm 0), one launch a
+    call, the kernel's route under set_sync_debug_mode("error")."""
+    inp = example_inputs(8100, NLEV, seed=5, device=dev)
+    play = rad._common_derived(inp)[0]
+    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
+    lw = rad.reference_modules(dev)[1]
+    for cols in (lw.zcw_cols(1), None):
+        args = (play, zm, inp.lats, DOY, inp.fcld, ngpt, cols)
+        LAUNCHES.clear()
+        (got,) = _sync_free(lambda: gp._gen_max_ran_mask(*args))
+        want = gp._gen_max_ran_mask(*args, plain=True)
+        assert dict(LAUNCHES) == {"mcica_gmr": 1}
+        assert got[0].shape == (8100, NLEV, ngpt)
+        assert bool(want[0].any()) and not bool(want[0].all())
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (ngpt, cols is None)
+
+
+@pytest.mark.parametrize("name", ["rrtmgp_sw", "rrtmgp_lw"])
+def test_rrtmgp_entry_launches_k8_once_a_call(dev, name):
+    """Each captured rrtmgp_sw / rrtmgp_lw call, replayed, adds exactly
+    one K8 launch, and its replays are bitwise equal to the eager body,
+    under set_sync_debug_mode("error"). 56 columns: a key no other test
+    captures."""
+    entry, body, a, kw, _ = _scheme_calls(dev, 0, (None, None), ncol=56)[
+        name]
+    a = (*a, DOY)
+    before = len(entry.graphs)
+    entry(*a, **kw)                                 # warm-up + capture
+    assert len(entry.graphs) == before + 1
+    for calls in (1, 2):
+        LAUNCHES.clear()
+        got = _sync_free(*[lambda: entry(*a, **kw)] * calls)
+        assert LAUNCHES["mcica_gmr"] == calls
+    LAUNCHES.clear()
+    (want,) = _sync_free(lambda: body(*a, **kw))
+    assert LAUNCHES["mcica_gmr"] == 1
+    for k in want:
+        assert torch.equal(got[-1][k], want[k]), (name, k)
+
+
 def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):
     """RRTMGP through the native engine (chip_smoke's synthetic 2-band
-    set) on the card: no kernel launched, within 5e-5 of the CPU."""
+    set) on the card: K8 launched twice (SW, LW) and no other kernel,
+    within 5e-5 of the CPU."""
     from chip_smoke import save_kdist_npz, synthetic_kdist
     paths = [str(tmp_path / f"{b}.npz") for b in ("lw", "sw")]
     for p in paths:
@@ -503,7 +553,8 @@ def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):
         upd = step.radiation_update(sol, irr, inp.tsinst + 0.5, inp.lons,
                                     inp.lats, inp.ple, DOY, 12.25,
                                     config=cfg)
-        assert not LAUNCHES
+        assert dict(LAUNCHES) == ({"mcica_gmr": 2} if device == dev
+                                  else {})
         outs.append((sol, irr, upd))
     (sol, irr, upd), (sol_c, irr_c, upd_c) = outs
     assert tuple(irr.olrb.shape) == (64, 2)
@@ -1027,11 +1078,11 @@ def _sw_bounds(dev, seeds):
                  else max(b[i] for b in bounds) for i in (0, 1))
 
 
-def _scheme_calls(dev, seed, bounds):
+def _scheme_calls(dev, seed, bounds, ncol=64):
     """name -> (entry, eager body, positional args before doy, keyword
-    args, takes doy) at 64 x 72 on the scene of seed, the refresh's
+    args, takes doy) at ncol x 72 on the scene of seed, the refresh's
     cos zenith and rrtmg_sw packed to bounds (nlit, ncld)."""
-    inp = example_inputs(64, NLEV, seed=seed, device=dev)
+    inp = example_inputs(ncol, NLEV, seed=seed, device=dev)
     sw, lw = rad.reference_modules(dev)
     play, h2o, o3 = rad._common_derived(inp)
     z = torch.zeros_like(inp.co2)
@@ -1042,7 +1093,7 @@ def _scheme_calls(dev, seed, bounds):
     slr, lit = mean_cos_zenith(inp.lons, inp.lats, DOY, 12.0, 1.0)
     cosz = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
                        torch.zeros_like(slr))
-    emis16 = inp.emis[:, None].expand(64, 16)
+    emis16 = inp.emis[:, None].expand(ncol, 16)
     cwc, reff = rad._cwc_reff(inp)
     cloud = (inp.fcld, ciwp, clwp, inp.ri, inp.rl, zm, inp.lats)
     sw_args = (inp.ple, play, inp.t, cosz, inp.albvr, inp.albvf, inp.albnr,
@@ -1063,7 +1114,7 @@ def _scheme_calls(dev, seed, bounds):
                          icb=71), False),
         "chou_lw": (chou_lw_mod.chou_lw, chou_lw_mod.chou_lw_eager,
                     (inp.ple, inp.t, inp.qv, inp.o3, inp.t2m, inp.tsinst,
-                     inp.emis[:, None].expand(64, 10), inp.co2, inp.n2o,
+                     inp.emis[:, None].expand(ncol, 10), inp.co2, inp.n2o,
                      inp.ch4, inp.cfc11, inp.cfc12, inp.hcfc22, cwc,
                      inp.fcld, reff), dict(ict=69, icb=71), False),
         "rrtmgp_sw": (gp.rrtmgp_sw, gp.rrtmgp_sw_eager, (sw, *sw_args), {},

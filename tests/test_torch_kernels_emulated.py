@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K7 and P1-P3 run on the CPU against their plain
+"""The CUDA sources of K1-K8 and P1-P3 run on the CPU against their plain
 PyTorch twins.
 
 g++ compiles geosradiation_gridcomp_tpu_torch/csrc/*.cu against a host
@@ -21,7 +21,10 @@ of expf is amplified through the 72-layer adding sweeps and the
 resonance-factored reflectances, and both float32 paths lie up to 7e-6
 from a float64 evaluation of the plain twin on this scene. K7, P1 and both P2
 kernels exact; P3's full variant equal to K3 bit for bit, and every
-variant elementwise within 1e-6 relative of its twin (K3's gate).
+variant elementwise within 1e-6 relative of its twin (K3's gate). K8's
+mask and zcw exact, and the state key of its prologue
+(mcica_gen.cuh:column_state_key) equal to ops.mcica.state_seed_key bit for
+bit.
 """
 
 import ctypes
@@ -55,8 +58,10 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
     PARTS, VARIANTS, _cells, taumol_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import taumol_sw
+from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme as gp
 from geosradiation_gridcomp_tpu_torch.ops import (ffill_cuda, gather_cuda,
-                                                  mcica, mcica_cuda)
+                                                  mcica, mcica_cuda,
+                                                  mcica_gmr_cuda)
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
 torch.set_num_threads(1)
@@ -77,6 +82,15 @@ extern "C" void column_subkeys_probe(const float* play, uint32_t* keys,
         for (int t = 0; t < 4; ++t)
             column_subkeys(play + static_cast<size_t>(c) * nlay, nlay,
                            seed_order, t, keys + static_cast<size_t>(c) * 8);
+}
+extern "C" void column_state_key_probe(const float* play, uint32_t* keys,
+                                       int ncol, int nlay, int seed_order) {
+    for (int c = 0; c < ncol; ++c) {
+        const Words k = column_state_key(
+            play + static_cast<size_t>(c) * nlay, nlay, seed_order);
+        keys[2 * c] = k.w0;
+        keys[2 * c + 1] = k.w1;
+    }
 }
 """
 
@@ -154,11 +168,10 @@ def _probe_keys(lib, play, seed_order):
     return (out.long() & 0xFFFFFFFF).reshape(-1, 4, 2)
 
 
-@pytest.mark.parametrize("seed_order", SEED_ORDERS, ids=str)
-def test_prologue_keys_equal_subcolumn_keys(lib, case, seed_order):
-    """On the scene's columns and on columns whose lowest four layers are
-    whole Pa (seed 1), a Pa value just below a whole number (seed near
-    2^31), zero and pressures of every magnitude."""
+def _crafted_play(play):
+    """The scene's pressures and columns whose lowest four layers are
+    whole Pa (seed 1), just below a whole number (seed near 2^31), zero
+    and of every magnitude."""
     rng = np.random.default_rng(11)
     crafted = rng.uniform(1.0, 1000.0, (6, NLEV)).astype(np.float32)
     crafted[:, -4:] = np.array([
@@ -168,7 +181,15 @@ def test_prologue_keys_equal_subcolumn_keys(lib, case, seed_order):
         [0.5, 0.25, 0.125, 0.0625],
         [1045.7, 1e-3, 1e-5, 123.456],
         [999.9999, 1000.0001, 99.99999, 100.00001]], np.float32)
-    play = torch.cat([case["k1"][0], torch.as_tensor(crafted)])
+    return torch.cat([play, torch.as_tensor(crafted)]).contiguous()
+
+
+@pytest.mark.parametrize("seed_order", SEED_ORDERS, ids=str)
+def test_prologue_keys_equal_subcolumn_keys(lib, case, seed_order):
+    """On the scene's columns and on columns whose lowest four layers are
+    whole Pa (seed 1), a Pa value just below a whole number (seed near
+    2^31), zero and pressures of every magnitude."""
+    play = _crafted_play(case["k1"][0])
     ints = mcica.state_seed_ints(play, seed_order)
     assert int(ints.min()) == 1 and int(ints.max()) >= 2 ** 31 - 256
     assert torch.equal(_probe_keys(lib, play, seed_order),
@@ -440,6 +461,66 @@ def test_k7_emulated_equals_plain(lib, case):
     assert 0 < int(b[0].sum()) and float(b[1].std()) > 0.1
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("seed_order", SEED_ORDERS, ids=str)
+def test_k8_state_key_equals_state_seed_key(lib, case, seed_order):
+    play = _crafted_play(case["k1"][0])
+    out = torch.zeros(play.shape[0] * 2, dtype=torch.int32)
+    lib.column_state_key_probe(ctypes.c_void_p(play.data_ptr()),
+                               ctypes.c_void_p(out.data_ptr()),
+                               play.shape[0], play.shape[1],
+                               seed_order_bits(seed_order))
+    assert torch.equal((out.long() & 0xFFFFFFFF).reshape(-1, 2),
+                       mcica.state_seed_key(play, seed_order))
+
+
+def _f32_edges():
+    """Cloud fractions on and beside the sigma class edges 0.9 and 0.99
+    (float32), and the ends of the range."""
+    up, down = np.float32(1.0), np.float32(0.0)
+    e = [np.float32(x) for x in (0.9, 0.99)]
+    return [*e, *(np.nextafter(x, up) for x in e),
+            *(np.nextafter(x, down) for x in e), np.float32(1.0),
+            np.float32(1e-7)]
+
+
+@pytest.fixture(scope="module")
+def gmr_case(case):
+    """K8's inputs on the scene: column 0 with its lowest cloud at layer
+    54, column 1 overcast, column 2 with cloud fractions on the sigma
+    class edges (layers 30-37), column 3 clear."""
+    inp = case["inp"]
+    play = case["k1"][0]
+    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
+    cldf = inp.fcld.clone()
+    cldf[0, 55:] = 0.0
+    cldf[0, 54] = 0.3
+    cldf[1] = 1.0
+    edges = _f32_edges()
+    cldf[2, 30:30 + len(edges)] = torch.as_tensor(np.array(edges))
+    assert not bool(cldf[3].any())
+    return play, zm, inp.lats, cldf
+
+
+@pytest.mark.parametrize("ngpt", [112, 140])
+@pytest.mark.parametrize("inhm", [0, 1, 2])
+def test_k8_emulated_equals_plain(lib, case, gmr_case, ngpt, inhm):
+    play, zm, lats, cldf = gmr_case
+    zcw_cols = None if inhm == 0 else case["lw"].zcw_cols(inhm)
+    alpha, rcorr = mcica.overlap_params(zm, lats, DOY)
+    mask, zcw = mcica_gmr_cuda.launch(lib, play, alpha, rcorr, cldf, ngpt,
+                                      zcw_cols)
+    mask_p, zcw_p = gp._gen_max_ran_mask(play, zm, lats, DOY, cldf, ngpt,
+                                         zcw_cols, plain=True)
+    assert mask.shape == zcw.shape == (NCOL, NLEV, ngpt)
+    assert torch.equal(mask, mask_p) and torch.equal(zcw, zcw_p)
+    assert bool(mask[0, :55].any()) and not bool(mask[0, 55:].any())
+    assert bool(mask[1].all()) and not bool(mask[3].any())
+    assert bool(mask[2, 30:38].any()) and not bool(mask[2, 30:38].all())
+    assert not bool(zcw[~mask].any())
+    if inhm != 0:
+        assert float(zcw[mask].std()) > 0.01
 
 
 def test_p1_emulated_equals_plain(lib):

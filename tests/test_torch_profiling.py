@@ -30,8 +30,8 @@ from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
     ROWS_CASES, gather_lanes, gather_lanes_plain, gather_rows,
     gather_rows_plain)
 from geosradiation_gridcomp_tpu_torch.tools.profiling import (
-    fused_mcica_check, gather_micro, kernel_ab, kernel_resources,
-    taumol_lw_bisect as bisect_tool)
+    fused_mcica_check, gather_micro, graph_pool, kernel_ab,
+    kernel_resources, taumol_lw_bisect as bisect_tool)
 
 torch.set_num_threads(1)
 
@@ -136,7 +136,7 @@ def test_p3_rejects_unknown_parts(lw):
 
 
 @pytest.mark.parametrize("tool", [fused_mcica_check, gather_micro,
-                                  bisect_tool])
+                                  bisect_tool, graph_pool])
 def test_profiling_entry_points_need_a_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
