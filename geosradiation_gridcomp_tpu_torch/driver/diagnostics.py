@@ -7,14 +7,24 @@ Port of geosradiation_gridcomp_tpu/driver/diagnostics.py:
     active trace species with that gas zeroed, storing flux internals so
     instantaneous radiative forcings (F_all - F_gas_zeroed) can be
     exported and advanced between refreshes like the main fluxes.
+
+What RATS does outside the captured graphs: only while a torch.profiler
+records, `rats_refresh` opens a range "rats_refresh/<gas>" over each
+gas's zeroing and solve and "rats_refresh/stack" over the stacking of the
+states, and `rats_update` one range "rats_update", so that a trace can
+name what the host did while the device idled; nothing of it reads a
+tensor back or synchronises. `counts()` gives, per function, its calls
+and the solves, zero fills and stacked copies they made.
 """
 
+import contextlib
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..tables import on_device
+from .compiled import _profiling
 from .state import RatsState
 
 # RRTMG LW band bounds [cm^-1] (rrlw_wvn wavenum1/2)
@@ -41,6 +51,23 @@ RATS_GASES = ("H2O", "O3", "CO2", "CH4", "N2O", "CFC11", "CFC12", "HCFC22")
 _RATS_FIELDS = {"H2O": "qv", "O3": "o3", "CO2": "co2", "CH4": "ch4",
                 "N2O": "n2o", "CFC11": "cfc11", "CFC12": "cfc12",
                 "HCFC22": "hcfc22"}
+
+# calls of rats_refresh / rats_update and what they did outside the
+# graphs: LW solves, zero fills of a gas, states copied by the stacking
+_COUNTS = {"rats_refresh": dict(calls=0, solves=0, fills=0, copies=0),
+           "rats_update": dict(calls=0, fills=0, copies=0)}
+
+
+def counts():
+    """Per RATS function, its calls and the solves, fills and copies they
+    made since the process started."""
+    return {name: dict(c) for name, c in _COUNTS.items()}
+
+
+def _range(name, profiling):
+    """A profiler range `name` while a profiler records, else nothing."""
+    return torch.profiler.record_function(name) if profiling \
+        else contextlib.nullcontext()
 
 
 def invert_planck_for_t(b_wn, wn):
@@ -98,15 +125,24 @@ def rats_refresh(inp, doy, config, ict, icb, taua=None,
             raise ValueError(f"unknown RATS gas {gas!r}")
     if lw is None and config.lw_scheme == Scheme.RRTMG:
         lw = reference_modules(inp.t.device)[1]
+    profiling = _profiling()
     states = []
     for gas in gases:
-        field = _RATS_FIELDS[gas]
-        zeroed = inp._replace(
-            **{field: torch.zeros_like(getattr(inp, field))})
-        states.append(irrad_refresh(zeroed, doy, config, ict, icb, taua=taua,
-                                    lw=lw, plain=plain))
-    return RatsState(*(torch.stack([getattr(st, f) for st in states])
-                       for f in RatsState._fields))
+        with _range(f"rats_refresh/{gas}", profiling):
+            field = _RATS_FIELDS[gas]
+            zeroed = inp._replace(
+                **{field: torch.zeros_like(getattr(inp, field))})
+            states.append(irrad_refresh(zeroed, doy, config, ict, icb,
+                                        taua=taua, lw=lw, plain=plain))
+    with _range("rats_refresh/stack", profiling):
+        out = RatsState(*(torch.stack([getattr(st, f) for st in states])
+                          for f in RatsState._fields))
+    c = _COUNTS["rats_refresh"]
+    c["calls"] += 1
+    c["solves"] += len(gases)
+    c["fills"] += len(gases)
+    c["copies"] += len(RatsState._fields) * len(gases)
+    return out
 
 
 def rats_update(rats: RatsState, irr_state, tsinst
@@ -118,8 +154,11 @@ def rats_update(rats: RatsState, irr_state, tsinst
 
     Returns (flx_rat [ngas, ncol, nlev+1], forcing [ngas, ncol, nlev+1]).
     """
-    delt = (tsinst - irr_state.ts)[None, :, None]
-    flx_rat = rats.flx + rats.dfdts * delt
-    flx_all = (irr_state.flx + irr_state.dfdts
-               * (tsinst - irr_state.ts)[:, None])[None]
-    return flx_rat, flx_all - flx_rat
+    with _range("rats_update", _profiling()):
+        delt = (tsinst - irr_state.ts)[None, :, None]
+        flx_rat = rats.flx + rats.dfdts * delt
+        flx_all = (irr_state.flx + irr_state.dfdts
+                   * (tsinst - irr_state.ts)[:, None])[None]
+        out = flx_rat, flx_all - flx_rat
+    _COUNTS["rats_update"]["calls"] += 1
+    return out

@@ -722,6 +722,50 @@ def test_rats_forcing_on_the_card(rats):
     assert float(co2.mean()) > float(ch4.mean()) > 0.0
 
 
+def test_rats_ranges_and_counts_on_the_card_do_not_synchronise(rats):
+    """Two RATS refreshes and an update, profiled and not, under
+    set_sync_debug_mode("error"): the ranges only under the profiler,
+    counts() up by 2 calls, 16 solves, 16 fills and 80 copies, every
+    output bitwise the replay's of the fixture."""
+    from torch.profiler import ProfilerActivity, profile
+    from geosradiation_gridcomp_tpu_torch.driver.diagnostics import counts
+    inp, lw, kern = rats[:3]
+    cfg = RadiationConfig()
+    irr = rad.irrad_refresh(inp, DOY, cfg, 69, 71, lw=lw)
+    ts = inp.tsinst + 0.5
+    torch.cuda.synchronize()
+    before = counts()
+    outs = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            traced = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
+            outs.append(rats_update(traced, irr, ts))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plain = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
+        outs.append(rats_update(plain, irr, ts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = counts()
+    names = {e.name for e in prof.events()}
+    want = {f"rats_refresh/{g}" for g in RATS_GASES} | {
+        "rats_refresh/stack", "rats_update"}
+    assert want <= names
+    assert {k: after["rats_refresh"][k] - before["rats_refresh"][k]
+            for k in before["rats_refresh"]} == dict(
+        calls=2, solves=16, fills=16, copies=80)
+    assert after["rats_update"]["calls"] - before["rats_update"][
+        "calls"] == 2
+    for x, y, z in zip(traced, plain, kern):
+        assert torch.equal(x, z) and torch.equal(y, z)
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+
 def test_chou_on_the_card_matches_the_cpu(dev):
     cfg = RadiationConfig(sw_scheme=Scheme.CHOU, lw_scheme=Scheme.CHOU)
     outs = []
