@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels (K1 McICA + LW cloud optics, K2 McICA + SW
 cloud optics, K3 taumol-LW, K4 rtrnmc, K5 taumol-SW, K6 spcvmc, K7 raw
-McICA draws, K8 RRTMGP's McICA draws, P1 forward fill, P2 table gathers,
-P3 taumol-LW bisection)
+McICA draws, K8 RRTMGP's McICA draws, K9 the LW table rows, P1 forward
+fill, P2 table gathers, P3 taumol-LW bisection)
 from geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, one
 nvcc per source side by side, then:
 
@@ -18,10 +18,11 @@ nvcc per source side by side, then:
    jax.jit): the first call warms up, captures a CUDA graph per static
    key and replays it (the scheme entries rrtmg_sw and rrtmg_lw run
    their bodies inside that capture and record no graph of their own),
-   and every kernel K1-K6 must launch exactly once
-   (LAUNCHES counts each replay's recorded launches); the capture's own
-   time and the graph pool's size are printed; a second call replays,
-   counts K1-K6 once again and returns outputs bitwise equal to the
+   and every kernel K1-K6 must launch exactly once and K9 twice (the LW
+   cloud rows and Planck rows; LAUNCHES counts each replay's recorded
+   launches); the capture's own time and the graph pool's size are
+   printed; a second call replays, counts them so again and returns
+   outputs bitwise equal to the
    first's and sharing no storage with them; the first call of each
    kernel's wrapper is recorded through the eager bodies
    (radiation_refresh_eager, radiation_update_eager, op by op: every
@@ -52,7 +53,12 @@ nvcc per source side by side, then:
    the work is operations over the FP32 peak, and for the threefry draws
    of K1, K2 and K7 (with K1 and K2's subkeys) the SASS instructions of
    one draw as nvcc compiles it in this run, over the rates of the SM's
-   pipes; then K1, K2, K4, K5 and K6's wrappers once more on those inputs,
+   pipes; K9's cloud rows and Planck rows, recorded as the refresh's LW
+   solve called band_abs_coeffs_lw and lw_rows_cuda.planck_rows, each
+   bitwise equal to its plain twin, with the route's, the kernel's and
+   the twins' times, the twins' tab[index] interpolations alone
+   (library_ms) and the bytes' bound; then K1, K2, K4, K5, K6 and K9's
+   wrappers once more on those inputs,
    and the whole refresh + update replayed and through the eager bodies,
    under torch.cuda.set_sync_debug_mode("error"), where any call that
    synchronises the stream (a copy from host memory) raises;
@@ -87,7 +93,8 @@ nvcc per source side by side, then:
    8192 x 72 with the step's ict/icb, through the kernels: its 8 solves
    replay one captured rrtmg_lw graph (the first call captures it: its
    time and the graph pool's growth are printed), K1, K3 and K4 must
-   launch exactly 8 times each and nothing else; the states bitwise
+   launch exactly 8 times each, K9 16 times, and nothing else; the
+   states bitwise
    equal to the eager body's (op by op, driver.compiled.disable_capture)
    at doy 172 and 172.001; K3 within relmax 5e-4 of its twin in every
    band on each gas's inputs, recorded on the eager body (the zeroed gas
@@ -114,7 +121,8 @@ nvcc per source side by side, then:
 8. rrtmgp phase: radiation_refresh + radiation_update with the RRTMGP SW
    and LW schemes through the RRTMG-reduced facade at 8192 x 72 through
    the captured entries: K3, K4 and K5 must launch exactly once each per
-   replay, K8 twice (SW, LW) and nothing else (K5 and K8 on all 8192
+   replay, K8 twice (SW, LW), K9 twice (the gas optics' Planck rows, the
+   band cloud optics' cloud rows) and nothing else (K5 and K8 on all 8192
    columns: the facade does not pack daylight); the first call's time
    and the pool's growth; K3 and K5 within relmax 5e-4 of their twins in
    every band and K4 in every output, and K8's mask and zcw bitwise
@@ -134,8 +142,9 @@ nvcc per source side by side, then:
 9. rrtmgp_native phase: the same through the native engine, on a
    synthetic 2-band coefficient set written to build/ (a numpy copy of
    the reference's tests/test_rrtmgp_engine.py:make_kdist), at 8192 x 72
-   through the captured entries: K8 must launch twice (SW, LW) and no
-   other kernel, olrb has the
+   through the captured entries: K8 must launch twice (SW, LW), K9 once
+   (the LW band cloud optics' cloud rows) and no other kernel, olrb has
+   the
    set's 2 bands, every state field and export within 5e-5 of the CPU
    on the first 256 columns (the grazing-sun columns, cos zenith under
    1e-4, reported apart: there the reference's two mu0 floors make the
@@ -210,9 +219,9 @@ rats_update and of cosp_simulator, replayed and eager.
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
 profiling, and K8's rrtmgp; launches_per_refresh for the step kernels
-and K8; launches_by_path on every path that launched it, K1, K3 and K4
-also on rats, K3, K4 and K5 also on rrtmgp, K8 also on rrtmgp_native,
-K1-K6 also on driver and parallel), error,
+and K8; launches_by_path on every path that launched it, K1, K3, K4 and
+K9 also on rats, K3, K4, K5 and K9 also on rrtmgp, K8 and K9 also on
+rrtmgp_native, K1-K6 and K9 also on driver and parallel), error,
 times, bound and library time, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 relmax is max|a - b| / max|b|, as the reference's tools/verify_tpu.py.
@@ -540,11 +549,82 @@ def step_kernel_phases(torch, dev, calls, draw):
     gate("run-to-run mismatches",
          float(sum(int((a[k] != again[k]).sum()) for k in a)), 0)
     timed("spcvmc", fn, spcvmc_sw, args, kw, err, spcvmc_bound(args, kw, a))
+    results["lw_rows"] = lw_rows_result(torch, calls)
     return results
 
 
+def lw_rows_result(torch, calls):
+    """K9 on the inputs the full-width refresh's eager body gave it (calls
+    from kernel_ab.recording: "lw_rows_cloud", band_abs_coeffs_lw as
+    rrtmg_lw calls it, and "lw_rows_planck", lw_rows_cuda.planck_rows as
+    setcoef_lw calls it): the cloud rows and the Planck rows each bitwise
+    equal to the plain twin's (band_abs_coeffs_lw with plain=True,
+    planck_rows_plain); the route's (CUDA events), the kernel's (device)
+    and the twins' times summed over the two launches of a LW solve;
+    library_ms the twins' tab[index] interpolations alone (both rows
+    gathered at the twin's indices and weights, computed beforehand, and
+    lo + fint (hi - lo)); the bound: each input read once and each output
+    written once (roofline/K9.py's count)."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
+    from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
+        planck_rows_plain
+
+    fc, ac, kc = calls["lw_rows_cloud"]
+    fp, ap, kp = calls["lw_rows_planck"]
+    (reice, reliq, cloud_tables), iceflag = ac[:3], kc.get("iceflag", 3)
+    tavel, tz, tbound, semiss, totplnk, dtab, dudts = ap
+    routes = {"cloud": lambda: fc(*ac, **kc), "planck": lambda: fp(*ap, **kp)}
+    twins = {"cloud": lambda: fc(*ac, **{**kc, "plain": True}),
+             "planck": lambda: planck_rows_plain(
+                 tavel, tz, tbound, semiss,
+                 dict(totplnk=totplnk, totplnkderiv=dtab), dudts)}
+    print(f"K9 (lw_rows) at {tuple(reliq.shape)}, iceflag {iceflag}, dudts "
+          f"{dudts}:")
+    # what K9 reads and writes: no ice rows for iceflags 0 and 1, no
+    # dplankbnd without dudts
+    written = {"cloud": (0, 1) if iceflag >= 2 else (1,),
+               "planck": (0, 1, 2, 3) if dudts else (0, 2, 3)}
+    moved = nbytes(reice if iceflag >= 2 else None, reliq, tavel, tz, tbound,
+                   semiss)
+    for name in routes:
+        got, want = routes[name](), twins[name]()
+        unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
+        gate(f"K9 {name} rows vs its twin: unequal", float(unequal), 0)
+        if not all(a.shape == b.shape and torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"K9's {name} rows are not bitwise its "
+                                 f"twin's")
+        moved += nbytes([got[i] for i in written[name]])
+    del got, want
+
+    def rows(tab, factor):
+        index = torch.clamp(torch.floor(factor).to(torch.int64), 1,
+                            tab.shape[0] - 1)
+        return tab, index, factor - index.to(factor.dtype)
+    interps = [rows(cloud_tables["absliq1"], reliq - 1.5)]
+    if iceflag >= 2:
+        interps.append(rows(cloud_tables[cldprmc_lw.ICE_TABLES[iceflag]],
+                            (reice - 2.0) / 3.0))
+    interps += [rows(totplnk, t - 159.0) for t in (tavel, tz, tbound)]
+    if dudts:
+        interps.append(rows(dtab, tbound - 159.0))
+    library = lambda: [cldprmc_lw._interp_rows(*r) for r in interps]
+    r = dict(max_abs_err=0.0, library_ms=time_ms(torch, library, 20))
+    r["ms"] = sum(time_ms(torch, f, 20) for f in routes.values())
+    r["device_ms"] = sum(kernel_device_ms(torch, "lw_rows", f)
+                         for f in routes.values())
+    r["plain_ms"] = sum(time_ms(torch, f, 3) for f in twins.values())
+    r["bound_ms"], r["bound_by"] = bound(moved)
+    print(f"  a LW solve (cloud + Planck): route {r['ms']:.4f} ms, device "
+          f"{r['device_ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, its "
+          f"tab[index] interpolations {r['library_ms']:.3f} ms), bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({100 * r['bound_ms'] / r['device_ms']:.1f} % of it)")
+    return r
+
+
 def sync_free_phase(torch, calls, step):
-    """K1, K2, K4, K5 and K6's wrappers on the refresh's inputs, then the
+    """K1, K2, K4, K5, K6 and K9's wrappers on the refresh's inputs, then the
     whole refresh + update, replayed and through the eager bodies, under
     set_sync_debug_mode("error"): a call that synchronises the stream (a
     copy from host memory, a read of a device value) fails."""
@@ -559,7 +639,7 @@ def sync_free_phase(torch, calls, step):
     runs = [(name, lambda fn=fn, a=args, kw=kw: fn(*a, **kw))
             for name, (fn, args, kw) in ((n, calls[n]) for n in (
                 "mcica_optics_lw", "mcica_optics_sw", "rtrnmc", "taumol_sw",
-                "spcvmc"))]
+                "spcvmc", "lw_rows_cloud", "lw_rows_planck"))]
     runs += [("captured refresh + update", lambda: step_run(False)),
              ("eager refresh + update", lambda: step_run(True))]
     for name, run in runs:
@@ -891,8 +971,8 @@ def step_phase(torch, dev):
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the main path: {launches}")
     require_launched(launches, "step")
-    gate("step kernels not launched exactly once",
-         sum(n != 1 for n in launches.values()), 0)
+    gate("step kernels not launched as often as a refresh launches them",
+         sum(n != per_refresh(k) for k, n in launches.items()), 0)
     print(f"  first calls (warm-up + capture + replay): refresh "
           f"{(t1 - t0) * 1e3:.1f} ms, update {(t2 - t1) * 1e3:.1f} ms; graph "
           f"pool {pool_bytes(torch, dev) / 2**20:.1f} MiB, reserved "
@@ -901,8 +981,8 @@ def step_phase(torch, dev):
     LAUNCHES.clear()
     again = run()
     torch.cuda.synchronize()
-    gate("replay: step kernels not counted exactly once",
-         sum(LAUNCHES.get(k, 0) != 1 for k, v in SOURCES.items()
+    gate("replay: step kernels not counted as a refresh launches them",
+         sum(LAUNCHES.get(k, 0) != per_refresh(k) for k, v in SOURCES.items()
              if v[2] == "step") + len(set(LAUNCHES) - set(launches)), 0)
     gate("replay vs first call: leaves not bitwise equal",
          unequal(again, (sol, irr, upd)), 0)
@@ -1279,8 +1359,8 @@ def rats_phase(torch, step, profile=False):
     rats, first_ms, pool_mib = first_call(torch, dev, refresh)
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the rats path: {launches}")
-    want = {k: len(RATS_GASES)
-            for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc")}
+    want = {k: len(RATS_GASES) * per_refresh(k)
+            for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc", "lw_rows")}
     if launches != want:
         raise AssertionError(f"rats path launched {launches}, not {want}")
     keys = [k for k in lwm.rrtmg_lw.graphs if ("lw", lw) in k[0]]
@@ -1459,7 +1539,7 @@ def rrtmgp_phase(torch, step, draw, profile=False):
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the rrtmgp path: {launches}")
     want = dict(dict.fromkeys(("taumol_lw", "taumol_sw", "rtrnmc"), 1),
-                mcica_gmr=2)
+                mcica_gmr=2, lw_rows=2)
     if launches != want:
         raise AssertionError(f"rrtmgp path launched {launches}, not {want}")
     print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
@@ -1681,7 +1761,7 @@ def rrtmgp_native_phase(torch, step, profile=False):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the rrtmgp_native path: {launches}")
-    if launches != {"mcica_gmr": 2}:
+    if launches != {"mcica_gmr": 2, "lw_rows": 1}:
         raise AssertionError(f"the native path launched {launches}")
     print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
           f"graph pool +{pool_mib:.1f} MiB for the key")
@@ -2408,7 +2488,7 @@ def profile_phase(torch, step, nwall=30, nprof=5):
     missing = [k for k, v in SOURCES.items() if v[2] == "step"
                and not any(v[3] in n for n in names)]
     print(f"  step kernels the profiler names inside the replay: "
-          f"{'all six' if not missing else f'all but {missing}'}")
+          f"{'all' if not missing else f'all but {missing}'}")
 
     # K1 and K2 derive the subkeys and K2 the SW band optics on the card:
     # the refresh calls neither subcolumn_keys nor band_optics_coeffs_sw
@@ -2508,7 +2588,18 @@ SOURCES = {
     "mcica_gmr": (_CSRC + "mcica_gmr.cu",
                   _REF + "models/rrtmgp/scheme.py:93", "rrtmgp",
                   "mcica_gmr_kernel"),
+    # K9 replaces plain jnp code too: the LW cloud rows and Planck rows
+    "lw_rows": (_CSRC + "lw_rows.cu",
+                _REF + "models/rrtmg/cldprmc_lw.py:54, "
+                "models/rrtmg/setcoef_lw.py:61", "step", "lw_rows_kernel"),
 }
+# launches a step refresh makes of each step kernel: one, but K9's two
+# (the cloud rows and the Planck rows of the LW solve)
+PER_REFRESH = {"lw_rows": 2}
+
+
+def per_refresh(name):
+    return PER_REFRESH.get(name, 1)
 
 
 def require_launched(launches, path):

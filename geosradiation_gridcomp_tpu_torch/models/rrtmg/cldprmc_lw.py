@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ...tables import load, on_device
+from . import lw_rows_cuda
 from .tables_lw import NG_LW
 
 # band -> 5-band index for iceflag==1 (rrlw_cld.F90:21-22)
@@ -25,6 +26,8 @@ NGB = np.repeat(np.arange(16), NG_LW)
 
 CLOUD_TABLE_KEYS = ("absice0", "absice1", "absice2", "absice3", "absice4",
                     "absliq1")
+# iceflag -> its row table
+ICE_TABLES = {2: "absice2", 3: "absice3", 4: "absice4"}
 
 
 def lw_cloud_tables(device="cuda"):
@@ -40,30 +43,50 @@ def _interp_rows(tab, index, fint):
     return lo + fint[..., None] * (hi - lo)
 
 
-def band_abs_coeffs_lw(reice, reliq, tables, iceflag=3, liqflag=1):
+def _ice_parametric(reice, tables, iceflag):
+    """absice of iceflags 0 (constant) and 1 (Ebert-Curry), which have no
+    row table."""
+    if iceflag == 0:
+        a = tables["absice0"]
+        return (a[0] + a[1] / torch.clamp(reice, min=1e-6))[..., None] \
+            .expand(reice.shape + (16,))
+    a = tables["absice1"]
+    ice1b = on_device(_ICE1B, reice.device)
+    return a[0][ice1b] + a[1][ice1b] \
+        / torch.clamp(reice, min=1e-6)[..., None]
+
+
+def band_abs_coeffs_lw(reice, reliq, tables, iceflag=3, liqflag=1,
+                       plain=False):
     """Per-band mass-absorption coefficients [m^2/g] from particle sizes.
 
     reice/reliq [..., nlay] microns -> (absice [..., nlay, 16],
     absliq [..., nlay, 16]).
+
+    CUDA tensors take kernel K9's cloud rows (lw_rows_cuda.py), the same
+    values bit for bit, unless plain (iceflags 0 and 1: absliq alone, the
+    ice coefficients below); CPU tensors and plain run the body below,
+    K9's plain twin.
     """
-    if iceflag == 0:
-        a = tables["absice0"]
-        absice = (a[0] + a[1] / torch.clamp(reice, min=1e-6))[..., None] \
-            .expand(reice.shape + (16,))
-    elif iceflag == 1:
-        a = tables["absice1"]
-        ice1b = on_device(_ICE1B, reice.device)
-        absice = a[0][ice1b] + a[1][ice1b] \
-            / torch.clamp(reice, min=1e-6)[..., None]
+    if liqflag != 1:
+        raise NotImplementedError("only liqflag=1 (Hu & Stamnes) exists")
+    if not plain and reliq.device.type == "cuda":
+        reice, reliq = reice.contiguous(), reliq.contiguous()
+        if iceflag in (0, 1):
+            return (_ice_parametric(reice, tables, iceflag),
+                    lw_rows_cuda.cloud_rows(None, reliq, None,
+                                            tables["absliq1"])[1])
+        return lw_rows_cuda.cloud_rows(
+            reice, reliq, tables[ICE_TABLES[iceflag]], tables["absliq1"])
+    if iceflag in (0, 1):
+        absice = _ice_parametric(reice, tables, iceflag)
     else:
-        tab = tables[{2: "absice2", 3: "absice3", 4: "absice4"}[iceflag]]
+        tab = tables[ICE_TABLES[iceflag]]
         n = tab.shape[0]
         factor = (reice - 2.0) / 3.0
         index = torch.clamp(torch.floor(factor).to(torch.int64), 1, n - 1)
         fint = factor - index.to(reice.dtype)
         absice = _interp_rows(tab, index, fint)
-    if liqflag != 1:
-        raise NotImplementedError("only liqflag=1 (Hu & Stamnes) exists")
     tabl = tables["absliq1"]
     nl = tabl.shape[0]
     factor = reliq - 1.5
@@ -99,7 +122,11 @@ def cldprmc_lw(cldymc, ciwpmc, clwpmc, reice, reliq, tables, iceflag=3,
     reice/reliq: [ncol, nlay] microns.
 
     Returns (taucmc [ncol, ngpt, nlay], cloudy [ncol, nlay] bool).
+
+    Plain PyTorch on every device, K9's plain twin included: it is K1's
+    reference (tools/verify.py).
     """
     absice, absliq = band_abs_coeffs_lw(reice, reliq, tables,
-                                        iceflag=iceflag, liqflag=liqflag)
+                                        iceflag=iceflag, liqflag=liqflag,
+                                        plain=True)
     return cldprmc_from_band_coeffs(cldymc, ciwpmc, clwpmc, absice, absliq)

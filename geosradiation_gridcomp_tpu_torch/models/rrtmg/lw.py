@@ -1,8 +1,9 @@
 """RRTMG-LW all-sky McICA driver (the reference's rrtmg_lw), PyTorch.
 
 Port of geosradiation_gridcomp_tpu/models/rrtmg/lw.py through its non-TPU
-branch: overlap parameters -> McICA subcolumns from the state seeds,
-cloud optics and clear counts (K1) -> setcoef -> taumol (K3) -> rtrnmc (K4).
+branch: the cloud table rows (K9) -> overlap parameters -> McICA
+subcolumns from the state seeds, cloud optics and clear counts (K1) ->
+setcoef with its Planck rows (K9) -> taumol (K3) -> rtrnmc (K4).
 Each kernel wrapper runs its plain twin for CPU tensors and its CUDA
 kernel for CUDA tensors.
 
@@ -141,8 +142,8 @@ def rrtmg_lw_eager(lw, ple, play, tlay, tlev, tsfc, emis,
       (micron) [ncol, nlay]; zm [ncol, nlay] mid heights (m); alat [rad];
       doy scalar; taua optional [ncol, nlay, 16];
       cloud_mh/cloud_lm: 1-based super-layer boundary layer indices.
-    plain=True runs the plain PyTorch twins of K1, K3 and K4 whatever the
-    device: the reference the kernels are held to on the card.
+    plain=True runs the plain PyTorch twins of K1, K3, K4 and K9 whatever
+    the device: the reference the kernels are held to on the card.
 
     Returns dict: uflx, dflx, uflxc, dflxc [ncol, nlay+1] (W/m^2,
     positive), duflx_dts, duflxc_dts, olrb, dolrb_dts [ncol, 16],
@@ -151,7 +152,8 @@ def rrtmg_lw_eager(lw, ple, play, tlay, tlev, tsfc, emis,
     plev = ple * 0.01
     alpha, rcorr = overlap_params(zm, alat, doy)
     absi, absl = band_abs_coeffs_lw(rei, rel, lw.cloud_tables,
-                                    iceflag=iceflag, liqflag=liqflag)
+                                    iceflag=iceflag, liqflag=liqflag,
+                                    plain=plain)
     zcw = lw.zcw_cols(inhm)
     mcica = mcica_optics_lw_plain if plain else mcica_optics_lw
     taumol = taumol_lw if plain else taumol_lw_fast
@@ -164,7 +166,7 @@ def rrtmg_lw_eager(lw, ple, play, tlay, tlev, tsfc, emis,
     coefs = setcoef_lw(play, tlay, plev, tlev, tsfc, emis,
                        h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr,
                        covmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr,
-                       lw.planck_tables, dudts=dudts)
+                       lw.planck_tables, dudts=dudts, plain=plain)
     taug, pfracs = taumol(coefs, lw.taumol_tables, taua)
     out = transfer(emis.contiguous(), taug, pfracs, cloudy, taucmc,
                       coefs.planklay, coefs.planklev, coefs.plankbnd,

@@ -10,6 +10,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import GRAV, AVOGAD, AMD, AMW
+from . import lw_rows_cuda
 
 _STPFAC = 296.0 / 1013.0
 
@@ -67,9 +68,23 @@ def _planck_interp(table, t):
     return lo + frac[..., None] * (table[ind] - lo)
 
 
+def planck_rows_plain(tavel, tz, tbound, semiss, tables, dudts=True):
+    """The Planck rows (plankbnd, dplankbnd, planklay, planklev) of
+    setcoef_lw: plain twin of kernel K9's Planck launch
+    (lw_rows_cuda.planck_rows). dplankbnd is zeros unless dudts."""
+    totplnk = tables["totplnk"]
+    plankbnd = semiss * _planck_interp(totplnk, tbound)
+    dplankbnd = semiss * _planck_interp(tables["totplnkderiv"], tbound) \
+        if dudts else torch.zeros_like(plankbnd)
+    planklay = _planck_interp(totplnk, tavel)
+    planklev = _planck_interp(totplnk, tz)
+    return plankbnd, dplankbnd, planklay, planklev
+
+
 def setcoef_lw(pavel, tavel, pz, tz, tbound, semiss,
                h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, covmr,
-               cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, tables, dudts=True):
+               cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, tables, dudts=True,
+               plain=False):
     """Compute LWCoefs.
 
     pavel/tavel: [..., nlay] layer p [hPa] / T [K].
@@ -78,6 +93,10 @@ def setcoef_lw(pavel, tavel, pz, tz, tbound, semiss,
     Gas vmrs: [..., nlay].
     tables: dict with preflog (59,), tref (59,), totplnk and
     totplnkderiv (181, 16) float32 tensors.
+
+    The Planck rows come from kernel K9 (lw_rows_cuda.planck_rows) for
+    CUDA tensors unless plain, the same values bit for bit; CPU tensors
+    and plain run planck_rows_plain, its twin.
     """
     dtype = pavel.dtype
     preflog = tables["preflog"]
@@ -97,12 +116,14 @@ def setcoef_lw(pavel, tavel, pz, tz, tbound, semiss,
     psfc = torch.maximum(pz[..., 0], pz[..., -1])
     pwvcm = wvsh * (1.0e3 * psfc) / (1.0e2 * GRAV)
 
-    totplnk = tables["totplnk"]
-    plankbnd = semiss * _planck_interp(totplnk, tbound)
-    dplankbnd = semiss * _planck_interp(tables["totplnkderiv"], tbound) \
-        if dudts else torch.zeros_like(plankbnd)
-    planklay = _planck_interp(totplnk, tavel)
-    planklev = _planck_interp(totplnk, tz)
+    if not plain and tavel.device.type == "cuda":
+        plankbnd, dplankbnd, planklay, planklev = lw_rows_cuda.planck_rows(
+            tavel.contiguous(), tz.contiguous(), tbound.contiguous(),
+            semiss.contiguous(), tables["totplnk"], tables["totplnkderiv"],
+            dudts)
+    else:
+        plankbnd, dplankbnd, planklay, planklev = planck_rows_plain(
+            tavel, tz, tbound, semiss, tables, dudts)
 
     plog = torch.log(pavel)
     jp = torch.clamp(torch.floor(36.0 - 5.0 * (plog + 0.04)).to(torch.int64),

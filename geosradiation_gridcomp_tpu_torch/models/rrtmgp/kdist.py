@@ -6,8 +6,9 @@ band/140 gpt LW) driven through the generic calls the GC makes:
 get_ngpt/get_nband/band limits, set_solar_variability(Mg, SB),
 gas_optics(...). KDistSW and KDistLW take their tables from an RRTMGSW /
 RRTMGLW module; their gas optics are setcoef then taumol, through kernel
-K5 (SW) and K3 (LW) for CUDA tensors and the plain twins for CPU tensors
-or when `plain`. load_kdist_npz, KDistLWNative and KDistSWNative carry an
+K5 (SW) and K3 (LW), and the LW Planck rows through K9, for CUDA tensors
+and the plain twins for CPU tensors or when `plain`. load_kdist_npz,
+KDistLWNative and KDistSWNative carry an
 ingested RRTMGP coefficient set (the npz schema of the reference's
 tools/rrtmgp_ingest.py, documented in gas_optics.py) onto the device for
 the native interpolation engine.
@@ -160,7 +161,7 @@ class KDistLW:
             *(g.get_vmr(k, like=tlay) for k in (
                 "h2o", "o3", "co2", "ch4", "n2o", "o2", "co", "cfc11",
                 "cfc12", "hcfc22", "ccl4")),
-            self.lw.planck_tables, dudts=dudts)
+            self.lw.planck_tables, dudts=dudts, plain=self.plain)
         taumol = taumol_lw if self.plain else taumol_lw_fast
         taug, pfracs = taumol(coefs, self.lw.taumol_tables)
         sources = dict(pfracs=pfracs, planklay=coefs.planklay,

@@ -6,11 +6,13 @@ GC's default path) -> generic rte solve.
 
 Port of geosradiation_gridcomp_tpu/models/rrtmgp/scheme.py. Without a
 coefficient file the RRTMG-reduced facade serves as the k-distribution:
-its gas optics run kernels K3 (LW) and K5 (SW), rte_lw runs K4 and the
-McICA draws run K8 (ops/mcica_gmr_cuda.py), each on CUDA tensors (the
-plain twins for CPU tensors or when `plain`); the band cloud optics and
-rte_sw are plain PyTorch. With one, the native engine (gas_optics.py,
-rte_native.py) runs, plain PyTorch but for K8's draws on CUDA tensors.
+its gas optics run kernels K3 (LW) and K5 (SW), rte_lw runs K4, the
+McICA draws run K8 (ops/mcica_gmr_cuda.py) and the LW table rows (the
+Planck rows and the cloud rows of the LW band cloud optics) K9, each on
+CUDA tensors (the plain twins for CPU tensors or when `plain`); the rest
+of the band cloud optics and rte_sw are plain PyTorch. With one, the
+native engine (gas_optics.py, rte_native.py) runs, plain PyTorch but for
+K8's draws and K9's LW cloud rows on CUDA tensors.
 
 Cloud optics: the band-resolved properties come from the RRTMG scheme's
 Ebert-Curry/Key/Fu + Hu-Stamnes parameterizations (the RRTMGSW / RRTMGLW
@@ -100,11 +102,13 @@ def _band_cloud_optics_sw(ciwp, clwp, rei, rel, tables, iceflag, liqflag):
     return tuple(x.transpose(1, 2) for x in (tau, ssa, asm))
 
 
-def _band_cloud_optics_lw(ciwp, clwp, rei, rel, tables, iceflag, liqflag):
+def _band_cloud_optics_lw(ciwp, clwp, rei, rel, tables, iceflag, liqflag,
+                          plain=False):
     """Band-resolved LW cloud absorption optical depth for fully-cloudy
-    cells, [ncol, nlay, 16] (cldprmc_lw at one g-point per band)."""
+    cells, [ncol, nlay, 16] (cldprmc_lw at one g-point per band); the
+    cloud rows through kernel K9 on CUDA tensors unless plain."""
     absice, absliq = band_abs_coeffs_lw(rei, rel, tables, iceflag=iceflag,
-                                        liqflag=liqflag)
+                                        liqflag=liqflag, plain=plain)
     ci, cl = ciwp[..., None], clwp[..., None]
     zero = ciwp.new_zeros(())
     return (torch.where(ci > 0.0, ci * absice, zero)
@@ -333,7 +337,7 @@ def rrtmgp_lw_eager(lw, ple, play, tlay, tsfc, emis,
                                       kd.get_ngpt(), _zcw_cols(lw, inhm),
                                       plain)
     tau_b = _band_cloud_optics_lw(ciwp, clwp, rei, rel, lw.cloud_tables,
-                                  iceflag, liqflag)
+                                  iceflag, liqflag, plain)
     tau_cld = draw_samples(cld_mask, dict(tau=tau_b), lims)["tau"] * zcw
     return rte_lw(taug, sources, emis, tau_cld=tau_cld,
                   cld_mask=cld_mask.any(dim=-1), dudts=dudts, plain=plain)

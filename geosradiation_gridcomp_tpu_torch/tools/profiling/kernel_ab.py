@@ -95,6 +95,13 @@ STEP_KERNELS = {
 STAGE_HELPERS = {"lw": ("subcolumn_keys",),
                  "sw": ("subcolumn_keys", "band_optics_coeffs_sw")}
 
+# K9's two launches, recorded where the LW solve reaches them: name ->
+# (module of models/rrtmg, function there). The cloud rows as lw.py calls
+# band_abs_coeffs_lw (on every device; K9 on CUDA tensors), the Planck
+# rows as setcoef_lw calls K9's wrapper (CUDA tensors only).
+ROW_LAUNCHES = {"lw_rows_cloud": ("lw", "band_abs_coeffs_lw"),
+                "lw_rows_planck": ("lw_rows_cuda", "planck_rows")}
+
 
 def plain_twin(name):
     """The plain PyTorch twin of step kernel `name`."""
@@ -107,12 +114,18 @@ def recording():
     """Within the block, each step kernel's wrapper, as the scheme modules
     (models/rrtmg/lw.py, sw.py) call it, keeps the arguments of its first
     call: yields kernel name -> (wrapper, args, kwargs). So does each
-    STAGE_HELPERS function a scheme module has, as "<module>.<name>".
+    STAGE_HELPERS function a scheme module has, as "<module>.<name>", and
+    each ROW_LAUNCHES function the checkout has, under its name.
     A replay calls no Python wrapper, so where the checkout's captured
     entries can be told to run their bodies (driver.compiled.
     disable_capture), the block runs under it."""
     modules = {m: importlib.import_module(f"{_PKG}.models.rrtmg.{m}")
                for m in ("lw", "sw")}
+    try:
+        modules["lw_rows_cuda"] = importlib.import_module(
+            f"{_PKG}.models.rrtmg.lw_rows_cuda")
+    except ImportError:     # a checkout before K9
+        pass
     try:
         compiled = importlib.import_module(f"{_PKG}.driver.compiled")
     except ImportError:
@@ -130,6 +143,8 @@ def recording():
                STEP_KERNELS.items()]
     targets += [(f"{m}.{attr}", m, attr) for m, attrs in STAGE_HELPERS.items()
                 for attr in attrs if hasattr(modules[m], attr)]
+    targets += [(name, m, attr) for name, (m, attr) in ROW_LAUNCHES.items()
+                if hasattr(modules.get(m), attr)]
     for name, m, attr in targets:
         saved[m, attr] = getattr(modules[m], attr)
         setattr(modules[m], attr, wrap(saved[m, attr], name))
@@ -281,8 +296,9 @@ def rotating(fn, live=LIVE):
 def lw_cloud_gathers(torch, dev):
     """The refresh's LW table-row gathers: name -> (table, int64 index
     [NCOL, NLEV]) for the rows index - 1 and index of absice3 and absliq1,
-    recorded from band_abs_coeffs_lw on scene.example_inputs' radii (the
-    refresh passes inp.ri and inp.rl to it unchanged)."""
+    recorded from band_abs_coeffs_lw's plain body on scene.example_inputs'
+    radii (the refresh passes inp.ri and inp.rl to it unchanged; on the
+    card the refresh takes kernel K9 in its place)."""
     from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
     from geosradiation_gridcomp_tpu_torch.scene import example_inputs
     inp = example_inputs(NCOL, NLEV, seed=SEED, device=dev)
@@ -295,7 +311,7 @@ def lw_cloud_gathers(torch, dev):
         return interp(tab, index, fint)
     cldprmc_lw._interp_rows = record
     try:
-        cldprmc_lw.band_abs_coeffs_lw(inp.ri, inp.rl, tables)
+        cldprmc_lw.band_abs_coeffs_lw(inp.ri, inp.rl, tables, plain=True)
     finally:
         cldprmc_lw._interp_rows = interp
     out = {}

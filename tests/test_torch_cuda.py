@@ -30,7 +30,12 @@ nothing else, its states against plain=True at the step's gates; the
 native engine on the card launches K8 twice and nothing else and is
 within 5e-5 of the CPU. K8 at 8,100 x 72 bitwise equal to its plain twin
 for 112 and 140 g-points, with and without the condensate PDF, sync-free;
-rrtmgp_sw / rrtmgp_lw launch it once per captured call. The column
+rrtmgp_sw / rrtmgp_lw launch it once per captured call. K9 (the LW table
+rows) at 8,100 x 72 bitwise equal to its twins for every iceflag and with
+and without dudts, sync-free, its wrappers' refusals, and a refresh with
+it bitwise equal to the same refresh with the twins' rows (RRTMG and the
+RRTMGP facade); the LW solve launches it twice (cloud and Planck rows),
+RATS 16 times a refresh, the native engine once. The column
 sharding: the refresh over column_mesh() and over two shards on the one
 card bitwise equal to the unsharded one, K1-K6 launched; StagedFeed's
 round trip through pinned memory and a side stream. The satellite
@@ -78,6 +83,7 @@ from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
 from geosradiation_gridcomp_tpu_torch.models import chou_lw as chou_lw_mod
 from geosradiation_gridcomp_tpu_torch.models import chou_sw as chou_sw_mod
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
+from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw_rows_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
     band_abs_coeffs_lw
@@ -86,8 +92,8 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_sw import \
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc_cuda import \
     rtrnmc_fast
-from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
-    setcoef_lw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import (
+    planck_rows_plain, setcoef_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
     setcoef_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
@@ -343,6 +349,7 @@ def test_refresh_runs_the_kernels(case):
     torch.cuda.synchronize()
     assert all(LAUNCHES[k] == 1
                for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc"))
+    assert LAUNCHES["lw_rows"] == 2             # K9: cloud and Planck rows
     ref = rad.irrad_refresh(inp, DOY, cfg, 69, 71, lw=case["lw"], plain=True)
     for f in st._fields:
         assert relmax(getattr(st, f), getattr(ref, f)) <= 5e-5, f
@@ -463,6 +470,7 @@ def test_step_runs_the_kernels(case):
     assert all(LAUNCHES[k] == 1 for k in (
         "mcica_optics_lw", "taumol_lw", "rtrnmc", "mcica_optics_sw",
         "taumol_sw", "spcvmc"))
+    assert LAUNCHES["lw_rows"] == 2
     sol_p, irr_p = step.radiation_refresh(inp, DOY, 12.0, plain=True, **kw)
     for f in irr._fields:
         assert relmax(getattr(irr, f), getattr(irr_p, f)) <= 5e-5, f
@@ -471,16 +479,17 @@ def test_step_runs_the_kernels(case):
 
 
 def test_rrtmgp_refresh_runs_k3_k4_k5(case):
-    """The RRTMGP facade: K3, K4 and K5 once each per refresh and K8
-    twice (SW, LW), no other kernel; the states against plain=True at the
-    step's gates."""
+    """The RRTMGP facade: K3, K4 and K5 once each per refresh, K8 twice
+    (SW, LW) and K9 twice (the Planck rows of its gas optics, the cloud
+    rows of its band cloud optics), no other kernel; the states against
+    plain=True at the step's gates."""
     cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
     kw = dict(config=cfg, ict=69, icb=71, sw=case["sw"], lw=case["lw"])
     LAUNCHES.clear()
     sol, irr = step.radiation_refresh(case["inp"], DOY, 12.0, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"taumol_lw": 1, "rtrnmc": 1, "taumol_sw": 1,
-                              "mcica_gmr": 2}
+                              "mcica_gmr": 2, "lw_rows": 2}
     sol_p, irr_p = step.radiation_refresh(case["inp"], DOY, 12.0,
                                           plain=True, **kw)
     for f in irr._fields:
@@ -535,8 +544,9 @@ def test_rrtmgp_entry_launches_k8_once_a_call(dev, name):
 
 def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):
     """RRTMGP through the native engine (chip_smoke's synthetic 2-band
-    set) on the card: K8 launched twice (SW, LW) and no other kernel,
-    within 5e-5 of the CPU."""
+    set) on the card: K8 launched twice (SW, LW), K9 once (the cloud rows
+    of the band cloud optics) and no other kernel, within 5e-5 of the
+    CPU."""
     from chip_smoke import save_kdist_npz, synthetic_kdist
     paths = [str(tmp_path / f"{b}.npz") for b in ("lw", "sw")]
     for p in paths:
@@ -553,8 +563,8 @@ def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):
         upd = step.radiation_update(sol, irr, inp.tsinst + 0.5, inp.lons,
                                     inp.lats, inp.ple, DOY, 12.25,
                                     config=cfg)
-        assert dict(LAUNCHES) == ({"mcica_gmr": 2} if device == dev
-                                  else {})
+        assert dict(LAUNCHES) == ({"mcica_gmr": 2, "lw_rows": 1}
+                                  if device == dev else {})
         outs.append((sol, irr, upd))
     (sol, irr, upd), (sol_c, irr_c, upd_c) = outs
     assert tuple(irr.olrb.shape) == (64, 2)
@@ -564,6 +574,152 @@ def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):
     for group in ("sw", "lw"):
         for k in upd_c[group]:
             assert relmax(upd[group][k].cpu(), upd_c[group][k]) <= 5e-5, k
+
+
+def _c90_face(dev, seed=5):
+    """A C90 face, 8,100 x 72: the inputs, the level temperatures, the
+    LW surface emissivity [8100, 16] and the LW tables."""
+    inp = example_inputs(8100, NLEV, seed=seed, device=dev)
+    play = rad._common_derived(inp)[0]
+    tlev = lwm.level_temperatures(play, inp.t, inp.ple * 0.01, inp.tsinst)
+    emis = inp.emis[:, None].expand(8100, 16).contiguous()
+    return inp, tlev, emis, rad.reference_modules(dev)[1]
+
+
+@pytest.mark.parametrize("iceflag", [0, 1, 2, 3, 4])
+def test_k9_cloud_rows_equal_plain_at_c90(dev, iceflag):
+    """K9's cloud rows at 8,100 x 72 bitwise equal to band_abs_coeffs_lw's
+    plain body, on the scene's radii and on radii below and above the
+    tables, one launch a call (absliq alone for iceflags 0 and 1), the
+    route under set_sync_debug_mode("error")."""
+    inp, _, _, lw = _c90_face(dev)
+    rei, rel = inp.ri.clone(), inp.rl.clone()
+    rei[0, :8] = torch.tensor([0.0, 1.0, 4.99, 5.0, 8.0, 137.0, 138.0, 500.0],
+                              device=dev)
+    rel[0, :8] = torch.tensor([0.0, 2.49, 2.5, 3.5, 58.5, 59.0, 60.0, 300.0],
+                              device=dev)
+    tables = lw.cloud_tables
+    # the twin first: iceflag 1's band map is copied to the card at its
+    # first use on a device (tables.on_device), which synchronises
+    want = band_abs_coeffs_lw(rei, rel, tables, iceflag=iceflag, plain=True)
+    LAUNCHES.clear()
+    (got,) = _sync_free(lambda: band_abs_coeffs_lw(rei, rel, tables,
+                                                   iceflag=iceflag))
+    assert dict(LAUNCHES) == {"lw_rows": 1}
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (8100, NLEV, 16)
+        assert torch.equal(a, b), iceflag
+
+
+@pytest.mark.parametrize("dudts", [True, False])
+def test_k9_planck_rows_equal_plain_at_c90(dev, dudts):
+    """K9's Planck rows at 8,100 x 72 bitwise equal to planck_rows_plain,
+    temperatures below 160 K and above 340 K included, one launch a call,
+    sync-free; and setcoef_lw with them bitwise equal to setcoef_lw with
+    plain=True in every field."""
+    inp, tlev, emis, lw = _c90_face(dev)
+    edges = torch.tensor([100.0, 159.5, 160.0, 161.0, 339.0, 339.5, 340.0,
+                          400.0], device=dev)
+    tavel, tz, ts = inp.t.clone(), tlev.clone(), inp.tsinst.clone()
+    tavel[0, :8], tz[1, :8], ts[:8] = edges, edges, edges
+    tables = lw.planck_tables
+    LAUNCHES.clear()
+    (got,) = _sync_free(lambda: lw_rows_cuda.planck_rows(
+        tavel, tz, ts, emis, tables["totplnk"], tables["totplnkderiv"],
+        dudts))
+    assert dict(LAUNCHES) == {"lw_rows": 1}
+    want = planck_rows_plain(tavel, tz, ts, emis, tables, dudts)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert bool(got[1].any()) == dudts
+    play, h2o, o3 = rad._common_derived(inp)
+    z = torch.zeros_like(inp.co2)
+    args = (play, tavel, inp.ple * 0.01, tz, ts, emis, h2o, o3, inp.co2,
+            inp.ch4, inp.n2o, torch.full_like(z, 0.2095), z, inp.cfc11,
+            inp.cfc12, inp.hcfc22, z, tables)
+    a = setcoef_lw(*args, dudts=dudts)
+    b = setcoef_lw(*args, dudts=dudts, plain=True)
+    for f in b._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("scheme", ["rrtmg", "rrtmgp"])
+def test_refresh_with_k9_bitwise_equal_to_its_twins(case, monkeypatch,
+                                                    scheme):
+    """A refresh run with K9 is bitwise equal to the same refresh with the
+    LW table rows from K9's plain twins and every other kernel as it was
+    (the bodies, run op by op): K9 moves no number of the RRTMG step or
+    of the RRTMGP facade."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmgp import kdist
+    cfg = RadiationConfig() if scheme == "rrtmg" else RadiationConfig(
+        sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
+
+    def refresh():
+        with disable_capture():
+            return step.radiation_refresh_eager(
+                case["inp"], DOY, 12.0, config=cfg, ict=69, icb=71,
+                sw=case["sw"], lw=case["lw"])
+    LAUNCHES.clear()
+    got = refresh()
+    assert LAUNCHES["lw_rows"] == 2
+    def twin(fn):
+        return lambda *a, **kw: fn(*a, **{**kw, "plain": True})
+    for mod in (lwm, kdist, gp):
+        for name in ("band_abs_coeffs_lw", "setcoef_lw"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, twin(getattr(mod, name)))
+    LAUNCHES.clear()
+    want = refresh()
+    assert "lw_rows" not in LAUNCHES and LAUNCHES["taumol_lw"] == 1
+    for a, b in zip(_step_tensors(got), _step_tensors(want)):
+        assert torch.equal(a, b), scheme
+
+
+def _off16(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_k9_wrappers_refuse_what_the_kernel_does_not_take(case):
+    """Tensors off the card, of another dtype, not contiguous or of
+    mismatched shapes, tables of another width or (Planck) another row
+    count, and rows it reads as float4 (tables, semiss) not 16-byte
+    aligned, are refused."""
+    inp, lw = case["inp"], case["lw"]
+    ct, pt = lw.cloud_tables, lw.planck_tables
+    rei, rel = inp.ri.contiguous(), inp.rl.contiguous()
+    ice, liq = ct["absice3"], ct["absliq1"]
+    cloud = lw_rows_cuda.cloud_rows
+    for bad, err in (((rei.cpu(), rel.cpu(), ice.cpu(), liq.cpu()),
+                      ValueError),
+                     ((rei.double(), rel.double(), ice, liq), TypeError),
+                     ((rei.t(), rel.t(), ice, liq), ValueError),
+                     ((rei[:, 1:].contiguous(), rel, ice, liq), ValueError),
+                     ((rei, rel, ice[:, :14].contiguous(), liq),
+                      ValueError),
+                     ((rei, rel, ice, _off16(liq)), ValueError)):
+        with pytest.raises(err):
+            cloud(*bad)
+    tz = lwm.level_temperatures(case["k1"][0], inp.t, inp.ple * 0.01,
+                                inp.tsinst)
+    tabs = (pt["totplnk"], pt["totplnkderiv"])
+    emis = case["emis"]
+    for bad, err in (((inp.t, tz[:, 1:].contiguous(), inp.tsinst, emis,
+                       *tabs), ValueError),
+                     ((inp.t, tz, inp.tsinst, emis[:, :8].contiguous(),
+                       *tabs), ValueError),
+                     ((inp.t, tz, inp.tsinst, emis, pt["totplnk"][1:],
+                       pt["totplnkderiv"][1:]), ValueError),
+                     ((inp.t, tz, inp.tsinst, emis.double(), *tabs),
+                      TypeError),
+                     ((inp.t, tz, inp.tsinst, _off16(emis), *tabs),
+                      ValueError)):
+        with pytest.raises(err):
+            lw_rows_cuda.planck_rows(*bad)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
@@ -689,9 +845,11 @@ def rats(dev):
 
 
 def test_rats_launches_each_lw_kernel_once_per_gas(rats):
+    """K1, K3 and K4 once per gas; K9 twice (cloud and Planck rows)."""
     launches = rats[4]
     for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc"):
         assert launches.get(k) == len(RATS_GASES), (k, launches)
+    assert launches.get("lw_rows") == 2 * len(RATS_GASES), launches
 
 
 @pytest.mark.parametrize("gas", RATS_GASES)
@@ -866,7 +1024,8 @@ def test_sharded_refresh_equals_unsharded_on_the_card(dev, nshard):
     LAUNCHES.clear()
     got = run_sharded(refresh, shard_columns(column_mesh() * nshard, inp))
     assert set(LAUNCHES) == {"mcica_optics_lw", "mcica_optics_sw",
-                             "taumol_lw", "rtrnmc", "taumol_sw", "spcvmc"}
+                             "taumol_lw", "rtrnmc", "taumol_sw", "spcvmc",
+                             "lw_rows"}
     for a, b in zip(got, want):
         for f in b._fields:
             assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -1000,6 +1159,12 @@ STEP_KERNELS = ("mcica_optics_lw", "mcica_optics_sw", "taumol_lw", "rtrnmc",
                 "taumol_sw", "spcvmc")
 
 
+def step_launches(n):
+    """The launches of n step refreshes: each step kernel once, K9 twice
+    (the LW cloud rows and the Planck rows)."""
+    return dict(dict.fromkeys(STEP_KERNELS, n), lw_rows=2 * n)
+
+
 def _step_tensors(tree):
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _step_tensors(tree[k])]
@@ -1054,7 +1219,7 @@ def test_captured_step_counts_each_kernel_once_per_replay(captured_step):
         for _ in range(n):
             captured_step(doy=DOY + 0.5)
         torch.cuda.synchronize()
-        assert dict(LAUNCHES) == dict.fromkeys(STEP_KERNELS, n)
+        assert dict(LAUNCHES) == step_launches(n)
 
 
 def test_captured_step_outputs_do_not_alias(captured_step):
@@ -1270,12 +1435,14 @@ def test_refresh_under_other_schemes_replays_bitwise_equal(dev, tmp_path,
 
 def test_rats_replays_bitwise_equal_eager(rats):
     """RATS's 8 solves through one captured rrtmg_lw graph: K1, K3 and K4
-    counted 8 times each over the replays, the states bitwise equal to
+    counted 8 times each over the replays and K9 16 times (cloud and
+    Planck rows of each solve), the states bitwise equal to
     the eager run's, and a second RATS refresh replayed and run eagerly
     under set_sync_debug_mode("error")."""
     inp, lw, kern, _, launches, _, eager = rats
-    assert launches == dict.fromkeys(("mcica_optics_lw", "taumol_lw",
-                                      "rtrnmc"), len(RATS_GASES))
+    assert launches == dict(dict.fromkeys(("mcica_optics_lw", "taumol_lw",
+                                           "rtrnmc"), len(RATS_GASES)),
+                            lw_rows=2 * len(RATS_GASES))
     for f in kern._fields:
         assert torch.equal(getattr(kern, f), getattr(eager, f)), f
     keys = [k for k in lwm.rrtmg_lw.graphs if ("lw", lw) in k[0]]
@@ -1307,5 +1474,5 @@ def test_step_capture_records_no_scheme_graph(dev):
                            sw=sw, lw=lw)
     torch.cuda.synchronize()
     assert len(step.radiation_refresh.graphs) == n + 1
-    assert dict(LAUNCHES) == dict.fromkeys(STEP_KERNELS, 1)
+    assert dict(LAUNCHES) == step_launches(1)
     assert [dict(e.graphs) for e in (lwm.rrtmg_lw, swm.rrtmg_sw)] == before

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K8 and P1-P3 run on the CPU against their plain
+"""The CUDA sources of K1-K9 and P1-P3 run on the CPU against their plain
 PyTorch twins.
 
 g++ compiles geosradiation_gridcomp_tpu_torch/csrc/*.cu against a host
@@ -24,7 +24,10 @@ kernels exact; P3's full variant equal to K3 bit for bit, and every
 variant elementwise within 1e-6 relative of its twin (K3's gate). K8's
 mask and zcw exact, and the state key of its prologue
 (mcica_gen.cuh:column_state_key) equal to ops.mcica.state_seed_key bit for
-bit.
+bit. K9's liquid and Planck rows exact against the twin's, and its ice rows
+exact against the twin's formed with the card's rounding of the factor
+(PyTorch multiplies a CUDA tensor by the reciprocal of 3 where it divides
+a CPU one).
 """
 
 import ctypes
@@ -40,7 +43,9 @@ import torch
 
 from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
 from geosradiation_gridcomp_tpu_torch.kernels.build import CSRC
+from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
+from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw_rows_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import rtrnmc_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import spcvmc_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
@@ -50,8 +55,8 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.cldprmc_lw import \
     band_abs_coeffs_lw
 from geosradiation_gridcomp_tpu_torch.ops.mcica_cuda import seed_order_bits
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.rtrnmc import rtrnmc
-from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import \
-    setcoef_lw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import (
+    planck_rows_plain, setcoef_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
     setcoef_sw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
@@ -521,6 +526,109 @@ def test_k8_emulated_equals_plain(lib, case, gmr_case, ngpt, inhm):
     assert not bool(zcw[~mask].any())
     if inhm != 0:
         assert float(zcw[mask].std()) > 0.01
+
+
+# K9's shapes: a column of 72 layers (one part-full block per segment),
+# three of 137 (blocks of 256 points cut mid-column) and nine of 72
+K9_SHAPES = ((1, NLEV), (3, 137), (9, NLEV))
+
+
+def _k9_inputs(case, shape, seed=9):
+    """Radii and temperatures of the given [ncol, nlay], drawn across and
+    beyond the tables (reice 0-200 um against absice's 5-137, reliq 0-80
+    against absliq1's 2.5-58.5, T 140-360 K against totplnk's 160-339),
+    with the scene's first column in place of the first, the ends of each
+    table's clamp and exact row edges; semiss [ncol, 16]."""
+    ncol, nlay = shape
+    rng = np.random.default_rng(seed + nlay)
+    u = lambda lo, hi, *s: torch.as_tensor(
+        rng.uniform(lo, hi, s).astype(np.float32))
+    reice, reliq = u(0.0, 200.0, ncol, nlay), u(0.0, 80.0, ncol, nlay)
+    tavel, tz = u(140.0, 360.0, ncol, nlay), u(140.0, 360.0, ncol, nlay + 1)
+    tbound, semiss = u(140.0, 360.0, ncol), u(0.8, 1.0, ncol, 16)
+    inp = case["inp"]
+    n = min(nlay, NLEV)
+    reice[0, :n], reliq[0, :n] = inp.ri[0, :n], inp.rl[0, :n]
+    tavel[0, :n], tz[0, :n] = inp.t[0, :n], inp.t[0, :n]
+    edges = torch.tensor([0.0, 1.0, 4.99, 5.0, 8.0, 137.0, 138.0, 500.0])
+    reice[-1, :8] = edges
+    reliq[-1, :8] = torch.tensor([0.0, 2.49, 2.5, 3.5, 58.5, 59.0, 60.0,
+                                  300.0])
+    tavel[-1, :8] = tz[-1, :8] = torch.tensor(
+        [100.0, 159.5, 160.0, 161.0, 339.0, 339.5, 340.0, 400.0])
+    tbound[0] = 150.0
+    tbound[-1] = 350.0
+    return dict(reice=reice, reliq=reliq, tavel=tavel, tz=tz, tbound=tbound,
+                semiss=semiss)
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES, ids=str)
+@pytest.mark.parametrize("iceflag", [0, 1, 2, 3, 4])
+def test_k9_cloud_emulated_equals_plain(lib, case, iceflag, shape):
+    """K9's cloud rows bit for bit band_abs_coeffs_lw's: absliq as the
+    twin on the CPU gives it, absice as the twin gives it on the card
+    (_ice_rows_by_reciprocal); iceflags 0 and 1 have no ice row table:
+    absliq alone."""
+    x = _k9_inputs(case, shape)
+    tables = case["lw"].cloud_tables
+    _, want_l = band_abs_coeffs_lw(x["reice"], x["reliq"], tables,
+                                   iceflag=iceflag)
+    if iceflag in (0, 1):
+        absice, absliq = lw_rows_cuda.launch_cloud(
+            lib, None, x["reliq"], None, tables["absliq1"])
+        assert absice is None
+    else:
+        tab = tables[cldprmc_lw.ICE_TABLES[iceflag]]
+        absice, absliq = lw_rows_cuda.launch_cloud(
+            lib, x["reice"], x["reliq"], tab, tables["absliq1"])
+        assert absice.shape == shape + (16,)
+        assert torch.equal(absice, _ice_rows_by_reciprocal(x["reice"], tab))
+    assert absliq.shape == shape + (16,) and torch.equal(absliq, want_l)
+
+
+def _ice_rows_by_reciprocal(reice, tab):
+    """The twin's absice with its factor formed as PyTorch forms it on a
+    CUDA tensor, (reice - 2) times the float reciprocal of 3."""
+    factor = (reice - 2.0) * torch.tensor(1.0 / 3.0, dtype=torch.float32)
+    index = torch.clamp(torch.floor(factor).to(torch.int64), 1,
+                        tab.shape[0] - 1)
+    return cldprmc_lw._interp_rows(tab, index, factor - index.float())
+
+
+@pytest.mark.parametrize("iceflag", [2, 3, 4])
+def test_k9_ice_factor_by_reciprocal(lib, case, iceflag):
+    """The rounding K9 takes, the card's: the ice rows equal the twin's
+    formed with the reciprocal's product, and differ from the CPU twin's
+    divided ones somewhere on these radii (so the emulated comparison
+    tells the two roundings apart)."""
+    x = _k9_inputs(case, (9, NLEV))
+    tables = case["lw"].cloud_tables
+    tab = tables[cldprmc_lw.ICE_TABLES[iceflag]]
+    absice, _ = lw_rows_cuda.launch_cloud(
+        lib, x["reice"], x["reliq"], tab, tables["absliq1"])
+    assert torch.equal(absice, _ice_rows_by_reciprocal(x["reice"], tab))
+    divided, _ = band_abs_coeffs_lw(x["reice"], x["reliq"], tables,
+                                    iceflag=iceflag)
+    assert not torch.equal(absice, divided)
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES, ids=str)
+@pytest.mark.parametrize("dudts", [True, False])
+def test_k9_planck_emulated_equals_plain(lib, case, shape, dudts):
+    """K9's Planck rows bit for bit planck_rows_plain's, temperatures
+    below 160 K and above 340 K clamped to the table's ends as there;
+    dplankbnd zeros without dudts."""
+    x = _k9_inputs(case, shape)
+    tables = case["lw"].planck_tables
+    got = lw_rows_cuda.launch_planck(
+        lib, x["tavel"], x["tz"], x["tbound"], x["semiss"],
+        tables["totplnk"], tables["totplnkderiv"], dudts)
+    want = planck_rows_plain(x["tavel"], x["tz"], x["tbound"], x["semiss"],
+                             tables, dudts)
+    for name, a, b in zip(("plankbnd", "dplankbnd", "planklay", "planklev"),
+                          got, want):
+        assert a.shape == b.shape and torch.equal(a, b), name
+    assert bool(got[1].any()) == dudts
 
 
 def test_p1_emulated_equals_plain(lib):

@@ -200,8 +200,10 @@ def test_kernel_ab_tensors_flattens_outputs():
 
 def test_kernel_ab_recording_keeps_each_step_kernels_first_call():
     """recording() sees every step kernel of a CPU refresh with its
-    arguments, the twins reproduce the recorded wrappers there, and the
-    scheme modules get their wrappers back after the block."""
+    arguments, and K9's cloud rows as the LW solve asks for them (its
+    Planck launch records on the card alone), the twins reproduce the
+    recorded wrappers there, and the scheme modules get their wrappers
+    back after the block."""
     from geosradiation_gridcomp_tpu_torch.config import RadiationConfig
     from geosradiation_gridcomp_tpu_torch.driver import step
     from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw, sw
@@ -212,15 +214,19 @@ def test_kernel_ab_recording_keeps_each_step_kernels_first_call():
     nlit, ncld = step.sw_partition_bounds(inp.lons, inp.lats, inp.fcld,
                                           172.0, 12.0, cfg, bucket=2)
     before = {(m, a): getattr(dict(lw=lw, sw=sw)[m], a)
-              for m, a, *_ in kernel_ab.STEP_KERNELS.values()}
+              for m, a, *_ in (*kernel_ab.STEP_KERNELS.values(),
+                               kernel_ab.ROW_LAUNCHES["lw_rows_cloud"])}
     with kernel_ab.recording() as calls:
         step.radiation_refresh(
             inp, 172.0, 12.0, config=cfg, ict=69, icb=71, sw_nlit=nlit,
             sw_ncld=ncld, sw=sw.RRTMGSW.from_reference_tables("cpu"),
             lw=lw.RRTMGLW.from_reference_tables("cpu"))
-    assert set(calls) == set(kernel_ab.STEP_KERNELS)
+    assert set(calls) == {*kernel_ab.STEP_KERNELS, "lw_rows_cloud"}
     assert calls["spcvmc"][2].get("ncld") == ncld
-    for name, (fn, args, kw) in calls.items():
+    _, args, _ = calls["lw_rows_cloud"]
+    assert torch.equal(args[0], inp.ri) and torch.equal(args[1], inp.rl)
+    for name in kernel_ab.STEP_KERNELS:
+        fn, args, kw = calls[name]
         got = kernel_ab.tensors(fn(*args, **kw))
         want = kernel_ab.tensors(kernel_ab.plain_twin(name)(*args, **kw))
         assert len(got) == len(want) > 0, name
