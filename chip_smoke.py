@@ -558,7 +558,7 @@ def lw_rows_result(torch, calls):
     from kernel_ab.recording: "lw_rows_cloud", band_abs_coeffs_lw as
     rrtmg_lw calls it, and "lw_rows_planck", lw_rows_cuda.planck_rows as
     setcoef_lw calls it): the cloud rows and the Planck rows each bitwise
-    equal to the plain twin's (band_abs_coeffs_lw with plain=True,
+    equal to the plain twin's (band_abs_coeffs_lw under twins(),
     planck_rows_plain); the route's (CUDA events), the kernel's (device)
     and the twins' times summed over the two launches of a LW solve;
     library_ms the twins' tab[index] interpolations alone (both rows
@@ -574,7 +574,7 @@ def lw_rows_result(torch, calls):
     (reice, reliq, cloud_tables), iceflag = ac[:3], kc.get("iceflag", 3)
     tavel, tz, tbound, semiss, totplnk, dtab, dudts = ap
     routes = {"cloud": lambda: fc(*ac, **kc), "planck": lambda: fp(*ap, **kp)}
-    twins = {"cloud": lambda: fc(*ac, **{**kc, "plain": True}),
+    twins = {"cloud": lambda: on_twins(fc)(*ac, **kc),
              "planck": lambda: planck_rows_plain(
                  tavel, tz, tbound, semiss,
                  dict(totplnk=totplnk, totplnkderiv=dtab), dudts)}
@@ -1241,6 +1241,17 @@ def op_by_op(fn):
     return run
 
 
+def on_twins(fn):
+    """fn with every kernel it reaches on its plain twin
+    (kernels.twins.twins): the reference the kernels are held to."""
+    from geosradiation_gridcomp_tpu_torch.kernels.twins import twins
+
+    def run(*args, **kwargs):
+        with twins():
+            return fn(*args, **kwargs)
+    return run
+
+
 def unequal_leaves(torch, a, b):
     """How many leaves of a and b differ (not bitwise equal)."""
     from geosradiation_gridcomp_tpu_torch.parallel.sharding import \
@@ -1349,8 +1360,8 @@ def rats_phase(torch, step, profile=False):
     inp, cfg, ict, icb = step["inp"], step["cfg"], step["ict"], step["icb"]
     lw, dev = step["mods"]["lw"], inp.t.device
 
-    def refresh(doy=DOY, plain=False):
-        return rats_refresh(inp, doy, cfg, ict, icb, lw=lw, plain=plain)
+    def refresh(doy=DOY):
+        return rats_refresh(inp, doy, cfg, ict, icb, lw=lw)
     eager_refresh = op_by_op(refresh)
 
     print(f"rats: rats_refresh over {len(RATS_GASES)} gases at "
@@ -1389,7 +1400,7 @@ def rats_phase(torch, step, profile=False):
             k3(*args, **kwargs), taumol_lw(*args, **kwargs)))
         gate(f"{gas} K3 vs its twin, worst band", err, 5e-4)
     del k3_calls
-    plain = refresh(plain=True)
+    plain = on_twins(refresh)()
     for g, gas in enumerate(RATS_GASES):
         err, field = max((relmax(getattr(rats, f)[g], getattr(plain, f)[g]),
                           f) for f in rats._fields)
@@ -1663,6 +1674,7 @@ def mcica_gmr_result(torch, calls, draw):
     lowest four layers and the table, and writing the outputs."""
     from geosradiation_gridcomp_tpu_torch.models.rrtmgp.scheme import \
         _gen_max_ran_mask
+    twin = on_twins(_gen_max_ran_mask)
 
     r = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
              library_ms=None)
@@ -1672,7 +1684,7 @@ def mcica_gmr_result(torch, calls, draw):
         cldf, cond = args[4], args[6] is not None
         print(f"K8 (mcica_gmr) at {tuple(cldf.shape)} x {ng}:")
         got = _gen_max_ran_mask(*args)
-        want = _gen_max_ran_mask(*args, plain=True)
+        want = twin(*args)
         for name, a, b in zip(("cld_mask", "zcw"), got, want):
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"K8 {name}: {a.dtype}{tuple(a.shape)}"
@@ -1693,8 +1705,7 @@ def mcica_gmr_result(torch, calls, draw):
         run = lambda: _gen_max_ran_mask(*args)
         ms = time_ms(torch, run, 20)
         dev_ms = kernel_device_ms(torch, "mcica_gmr", run)
-        plain_ms = time_ms(torch, lambda: _gen_max_ran_mask(*args,
-                                                            plain=True), 2)
+        plain_ms = time_ms(torch, lambda: twin(*args), 2)
         print(f"  route {ms:.4f} ms (overlap parameters included), kernel "
               f"device {dev_ms:.4f} ms (plain {plain_ms:.2f} ms)")
         r["ms"] += ms

@@ -5,8 +5,8 @@ module (`driver/`, `models/rrtmg/`, `ops/`): each port module keeps the
 reference's function names and its [ncol, nlay, ngpt] TOA-first layouts.
 Every Pallas kernel of the reference becomes a CUDA C++ kernel under
 `csrc/`, built with nvcc for sm_90a by `kernels/build.py` and loaded with
-ctypes; each has a plain-PyTorch twin that the wrapper runs for CPU
-tensors.
+ctypes; each has a plain-PyTorch twin, which the wrapper runs for CPU
+tensors and inside `kernels.twins.twins()`.
 
 The port stands alone: it imports neither jax nor anything of the
 reference package. It keeps its own copies of the reference's numpy-only

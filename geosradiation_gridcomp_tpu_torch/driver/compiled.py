@@ -41,7 +41,9 @@ captured runs its own body and records no graph (the refresh's graph
 then holds rrtmg_lw's kernels, and rrtmg_lw keeps no graph of its own).
 `disable_capture()` makes every entry called inside it run its body
 (jax.disable_jit's counterpart): what records the kernel wrappers'
-calls must run under it, since a replay calls no Python wrapper.
+calls must run under it, since a replay calls no Python wrapper. So does
+kernels.twins.twins(), which a plain=True body opens: an entry a plain
+body reaches never captures.
 
 kernels.build.LAUNCHES counts each kernel once per call on either route:
 the wrapper calls made during the warm-up and the capture are taken back
@@ -78,6 +80,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.build import LAUNCHES
+from ..kernels.twins import active as twins_active
 from ..parallel.sharding import tree_leaves, tree_map
 
 # the structure of a traced leaf
@@ -234,11 +237,11 @@ class StaticIO:
 
     traced: name -> value of each traced argument of the call that makes
     the key; device: where the buffers live (every tensor of traced but
-    the scalars must lie there). Calling it with another call's traced
-    values copies them into the buffers on the current stream (fill_ for
-    a Python number), runs replay() and returns clones of what replay()
-    returns. `arguments` are the traced arguments on the buffers, which
-    the body is captured on.
+    the scalars must lie there). `load` copies another call's traced
+    values into the buffers on the current stream (fill_ for a Python
+    number); Captured.__call__ then replays and returns clone_tree of the
+    static outputs. `arguments` are the traced arguments on the buffers,
+    which the body is captured on.
     """
 
     def __init__(self, traced, device):
@@ -268,10 +271,6 @@ class StaticIO:
                 buf.copy_(x)
             else:
                 buf.fill_(float(x))
-
-    def __call__(self, traced, replay):
-        self.load(traced)
-        return clone_tree(replay())
 
 
 @functools.lru_cache(maxsize=None)
@@ -340,7 +339,8 @@ def on_card(arguments, device):
 
 def with_kernels(arguments, device):
     """The route of the entries with a plain switch: capture on a card
-    unless plain (the plain twins are what the kernels are held to)."""
+    unless plain, whose body runs the plain twins (kernels.twins), what
+    the kernels are held to."""
     return None if arguments["plain"] else on_card(arguments, device)
 
 
@@ -392,7 +392,7 @@ class Captured:
                     keys={g.id: dict(g.copies) for g in self.graphs.values()})
 
     def __call__(self, *args, **kwargs):
-        if _depth():
+        if _depth() or twins_active():
             return self.body(*args, **kwargs)
         t0 = time.perf_counter()
         bound = self.signature.bind(*args, **kwargs)

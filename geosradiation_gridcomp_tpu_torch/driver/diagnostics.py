@@ -104,8 +104,7 @@ def band_brightness_temperature(olrb, wavenum1=None, wavenum2=None):
 
 
 def rats_refresh(inp, doy, config, ict, icb, taua=None,
-                 gases: Sequence[str] = RATS_GASES, lw=None,
-                 plain=False) -> RatsState:
+                 gases: Sequence[str] = RATS_GASES, lw=None) -> RatsState:
     """LW internals with each trace gas zeroed in turn (the RATS loop,
     GEOS_IrradGridComp.F90:3405-3468); each entry costs one full LW solve.
 
@@ -113,7 +112,6 @@ def rats_refresh(inp, doy, config, ict, icb, taua=None,
     (radiation.reference_modules) when None and the scheme is RRTMG, and
     shared by every solve: on a card the 8 solves then replay one
     rrtmg_lw graph, the zeroed gas copied in.
-    plain=True runs the kernels' plain PyTorch twins (see irrad_refresh).
 
     Returns RatsState with leading gas axis ordered as `gases`.
     """
@@ -133,7 +131,7 @@ def rats_refresh(inp, doy, config, ict, icb, taua=None,
             zeroed = inp._replace(
                 **{field: torch.zeros_like(getattr(inp, field))})
             states.append(irrad_refresh(zeroed, doy, config, ict, icb,
-                                        taua=taua, lw=lw, plain=plain))
+                                        taua=taua, lw=lw))
     with _range("rats_refresh/stack", profiling):
         out = RatsState(*(torch.stack([getattr(st, f) for st in states])
                           for f in RatsState._fields))

@@ -116,8 +116,7 @@ def _incloud_paths(inp):
 
 def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
                   ict, icb, taua=None, ssaa=None, asya=None,
-                  nlit=None, ncld=None, sw: RRTMGSW = None,
-                  plain=False) -> SolarState:
+                  nlit=None, ncld=None, sw: RRTMGSW = None) -> SolarState:
     """Full SW RT; stores NORMALIZED internals (fractions of TOA insolation
     at the refresh-time zenith angle). cosz: [ncol] mean cosine over the
     refresh interval (lit part).
@@ -128,27 +127,24 @@ def solar_refresh(inp: AtmosInputs, cosz, doy, config: RadiationConfig,
     holding the tables (reference_modules of the inputs' device when None
     and the scheme is RRTMG or RRTMGP, whose facade and cloud optics use
     them).
-    plain=True runs the kernels' plain PyTorch twins (see rrtmg_sw and
-    rrtmgp_sw); the Chou-Suarez scheme and RRTMGP's native engine have no
-    kernel.
     """
     if sw is None and config.sw_scheme in (Scheme.RRTMG, Scheme.RRTMGP):
         sw = reference_modules(inp.t.device)[0]
     st = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa,
-                             asya, nlit, ncld, sw, plain)
+                             asya, nlit, ncld, sw)
     if taua is None:
         return st._replace(flxnan=st.flxn, flcnan=st.flcn,
                            flxunan=st.flxun)
     if config.wants("no_aerosol"):
         na = _solar_refresh_pass(inp, cosz, doy, config, ict, icb, None,
-                                 None, None, nlit, ncld, sw, plain)
+                                 None, None, nlit, ncld, sw)
         return st._replace(flxnan=na.flxn, flcnan=na.flcn,
                            flxunan=na.flxun)
     return st
 
 
 def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
-                        nlit, ncld, sw, plain) -> SolarState:
+                        nlit, ncld, sw) -> SolarState:
     if config.sw_scheme == Scheme.CHOU:
         cwc, reff = _cwc_reff(inp)
         out = chou_sw(cosz, inp.ple, inp.t, inp.qv, inp.o3, inp.co2,
@@ -188,7 +184,7 @@ def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
                         iceflag=config.iceflag_sw,
                         liqflag=config.liqflag_sw,
                         inhm=config.condensate_inhomogeneity,
-                        kdist_path=config.rrtmgp_kdist_sw, plain=plain)
+                        kdist_path=config.rrtmgp_kdist_sw)
         # the RRTMGP path gives broadband and direct fluxes only: the
         # band diagnostics read the GEOS missing-data marker (MAPL_UNDEF),
         # "not available" rather than silent zeros; PAR direct/diffuse
@@ -223,7 +219,7 @@ def _solar_refresh_pass(inp, cosz, doy, config, ict, icb, taua, ssaa, asya,
                    iceflag=config.iceflag_sw, liqflag=config.liqflag_sw,
                    cloud_mh=ict, cloud_lm=icb,
                    inhm=config.condensate_inhomogeneity, nlit=nlit,
-                   ncld=ncld, plain=plain)
+                   ncld=ncld)
     if config.wants("clear_counts"):
         cldfrc = 1.0 - out["clear_counts"].to(out["bbfd"].dtype) / 112.0
     else:
@@ -279,23 +275,20 @@ def solar_update(state: SolarState, cosz_now, doy_now,
 
 def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
                   ict, icb, taua=None, ssaa=None, asya=None,
-                  lw: RRTMGLW = None, plain=False) -> IrradState:
+                  lw: RRTMGLW = None) -> IrradState:
     """Full LW RT; stores fluxes + dF/dTs Jacobian at refresh time.
 
     taua/ssaa/asya: LW aerosol optics; Chou-Suarez takes all three
     [ncol, nlay, 10], RRTMG-LW (absorption-only) taua alone
     [ncol, nlay, 16]; RRTMGP takes none. lw: the RRTMGLW holding the
     tables (reference_modules of the inputs' device when None).
-    plain=True runs the kernels' plain PyTorch twins on any device (see
-    rrtmg_lw and rrtmgp_lw); the Chou-Suarez scheme and RRTMGP's native
-    engine have no kernel.
     """
     if config.lw_scheme == Scheme.CHOU:
         return _chou_irrad_refresh(inp, config, ict, icb, taua, ssaa, asya)
     if lw is None:
         lw = reference_modules(inp.t.device)[1]
     if config.lw_scheme == Scheme.RRTMGP:
-        return _rrtmgp_irrad_refresh(inp, doy, config, lw, plain)
+        return _rrtmgp_irrad_refresh(inp, doy, config, lw)
     play, h2ovmr, o3vmr = _common_derived(inp)
     ncol = inp.t.shape[0]
     emis16 = inp.emis[:, None].expand(ncol, 16)
@@ -316,8 +309,7 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
                         liqflag=config.liqflag_lw,
                         dudts=config.ts_derivs,
                         cloud_mh=ict, cloud_lm=icb,
-                        inhm=config.condensate_inhomogeneity,
-                        plain=plain)
+                        inhm=config.condensate_inhomogeneity)
 
     def derivs(o):
         if not config.ts_derivs:
@@ -353,7 +345,7 @@ def irrad_refresh(inp: AtmosInputs, doy, config: RadiationConfig,
         flxa=flxa, fla=fla, dfdtsna=dfdtsna, dfdtscna=dfdtscna)
 
 
-def _rrtmgp_irrad_refresh(inp, doy, config, lw, plain):
+def _rrtmgp_irrad_refresh(inp, doy, config, lw):
     play, h2ovmr, o3vmr = _common_derived(inp)
     ncol = inp.t.shape[0]
     zm = mid_heights(play, inp.t, inp.ple[..., -1])
@@ -368,7 +360,7 @@ def _rrtmgp_irrad_refresh(inp, doy, config, lw, plain):
                     iceflag=config.iceflag_lw, liqflag=config.liqflag_lw,
                     inhm=config.condensate_inhomogeneity,
                     dudts=config.ts_derivs,
-                    kdist_path=config.rrtmgp_kdist_lw, plain=plain)
+                    kdist_path=config.rrtmgp_kdist_lw)
     net = out["flux_dn"] - out["flux_up"]
     clr = out["flux_dn_clr"] - out["flux_up_clr"]
     if config.ts_derivs:

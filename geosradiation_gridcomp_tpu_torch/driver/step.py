@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .astronomy import mean_cos_zenith
+from ..kernels.twins import twins
 from .compiled import captured, with_kernels
 from .radiation import (AtmosInputs, heating_rates, irrad_refresh,
                         irrad_update, reference_modules, solar_refresh,
@@ -51,25 +52,27 @@ def radiation_refresh_eager(inp: AtmosInputs, doy, utc_hours, *, config,
     (sw_partition_bounds below).
     sw / lw: the RRTMGSW / RRTMGLW modules holding the tables
     (radiation.reference_modules of the inputs' device when None).
-    plain=True runs the kernels' plain PyTorch twins.
+    plain=True runs the kernels' plain PyTorch twins (the body under
+    kernels.twins.twins).
     """
-    slr, lit = mean_cos_zenith(inp.lons, inp.lats, doy, utc_hours,
-                               config.solar_dt / 3600.0)
-    zth = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
-                      torch.zeros_like(slr))
-    staua, sssaa, sasya = sw_aero if sw_aero is not None else (None,) * 3
-    if lw_aero is None:
-        ltaua, lssaa, lasya = None, None, None
-    elif isinstance(lw_aero, (tuple, list)):
-        ltaua, lssaa, lasya = lw_aero
-    else:
-        ltaua, lssaa, lasya = lw_aero, None, None
-    sol = solar_refresh(inp, zth, doy, config, ict, icb, taua=staua,
-                        ssaa=sssaa, asya=sasya, nlit=sw_nlit, ncld=sw_ncld,
-                        sw=sw, plain=plain)
-    irr = irrad_refresh(inp, doy, config, ict, icb, taua=ltaua, ssaa=lssaa,
-                        asya=lasya, lw=lw, plain=plain)
-    return sol, irr
+    with twins(plain):
+        slr, lit = mean_cos_zenith(inp.lons, inp.lats, doy, utc_hours,
+                                   config.solar_dt / 3600.0)
+        zth = torch.where(lit > 0.0, slr / torch.clamp(lit, min=1e-6),
+                          torch.zeros_like(slr))
+        staua, sssaa, sasya = sw_aero if sw_aero is not None else (None,) * 3
+        if lw_aero is None:
+            ltaua, lssaa, lasya = None, None, None
+        elif isinstance(lw_aero, (tuple, list)):
+            ltaua, lssaa, lasya = lw_aero
+        else:
+            ltaua, lssaa, lasya = lw_aero, None, None
+        sol = solar_refresh(inp, zth, doy, config, ict, icb, taua=staua,
+                            ssaa=sssaa, asya=sasya, nlit=sw_nlit,
+                            ncld=sw_ncld, sw=sw)
+        irr = irrad_refresh(inp, doy, config, ict, icb, taua=ltaua,
+                            ssaa=lssaa, asya=lasya, lw=lw)
+        return sol, irr
 
 
 def radiation_update_eager(solar_state, irrad_state, tsinst, lons, lats, ple,

@@ -15,6 +15,7 @@ absliq1 (58, 16).
 import numpy as np
 import torch
 
+from ...kernels.twins import twins, use_kernel
 from ...tables import load, on_device
 from . import lw_rows_cuda
 from .tables_lw import NG_LW
@@ -56,21 +57,20 @@ def _ice_parametric(reice, tables, iceflag):
         / torch.clamp(reice, min=1e-6)[..., None]
 
 
-def band_abs_coeffs_lw(reice, reliq, tables, iceflag=3, liqflag=1,
-                       plain=False):
+def band_abs_coeffs_lw(reice, reliq, tables, iceflag=3, liqflag=1):
     """Per-band mass-absorption coefficients [m^2/g] from particle sizes.
 
     reice/reliq [..., nlay] microns -> (absice [..., nlay, 16],
     absliq [..., nlay, 16]).
 
-    CUDA tensors take kernel K9's cloud rows (lw_rows_cuda.py), the same
-    values bit for bit, unless plain (iceflags 0 and 1: absliq alone, the
-    ice coefficients below); CPU tensors and plain run the body below,
-    K9's plain twin.
+    Kernel K9's cloud rows (lw_rows_cuda.py) where
+    kernels.twins.use_kernel, the same values bit for bit (iceflags 0 and
+    1: absliq alone, the ice coefficients below); otherwise the body
+    below, K9's plain twin.
     """
     if liqflag != 1:
         raise NotImplementedError("only liqflag=1 (Hu & Stamnes) exists")
-    if not plain and reliq.device.type == "cuda":
+    if use_kernel(reliq):
         reice, reliq = reice.contiguous(), reliq.contiguous()
         if iceflag in (0, 1):
             return (_ice_parametric(reice, tables, iceflag),
@@ -126,7 +126,7 @@ def cldprmc_lw(cldymc, ciwpmc, clwpmc, reice, reliq, tables, iceflag=3,
     Plain PyTorch on every device, K9's plain twin included: it is K1's
     reference (tools/verify.py).
     """
-    absice, absliq = band_abs_coeffs_lw(reice, reliq, tables,
-                                        iceflag=iceflag, liqflag=liqflag,
-                                        plain=True)
+    with twins():
+        absice, absliq = band_abs_coeffs_lw(reice, reliq, tables,
+                                            iceflag=iceflag, liqflag=liqflag)
     return cldprmc_from_band_coeffs(cldymc, ciwpmc, clwpmc, absice, absliq)

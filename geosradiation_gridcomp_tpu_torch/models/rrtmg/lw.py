@@ -4,8 +4,8 @@ Port of geosradiation_gridcomp_tpu/models/rrtmg/lw.py through its non-TPU
 branch: the cloud table rows (K9) -> overlap parameters -> McICA
 subcolumns from the state seeds, cloud optics and clear counts (K1) ->
 setcoef with its Planck rows (K9) -> taumol (K3) -> rtrnmc (K4).
-Each kernel wrapper runs its plain twin for CPU tensors and its CUDA
-kernel for CUDA tensors.
+Each kernel function launches its CUDA kernel where
+kernels.twins.use_kernel and runs its plain twin otherwise.
 
 All inputs TOA-first. Water paths are IN-CLOUD values in g/m^2.
 """
@@ -15,15 +15,14 @@ from torch import nn
 
 from ...constants import AMD, GRAV, RGAS
 from ...driver.compiled import captured, with_kernels
+from ...kernels.twins import twins
 from ...ops.mcica import _sigma_class, overlap_params, zcw_class_columns
-from ...ops.mcica_cuda import mcica_optics_lw, mcica_optics_lw_plain
+from ...ops.mcica_cuda import mcica_optics_lw
 from .cldprmc_lw import CLOUD_TABLE_KEYS, band_abs_coeffs_lw, lw_cloud_tables
-from .rtrnmc import rtrnmc
 from .rtrnmc_cuda import rtrnmc_fast
 from .setcoef_lw import setcoef_lw
 from .tables_lw import lw_tables
-from .taumol_lw import (TaumolTables, pack_taumol_tables, taumol_lw,
-                        taumol_offsets)
+from .taumol_lw import TaumolTables, pack_taumol_tables, taumol_offsets
 from .taumol_lw_cuda import taumol_lw_fast
 
 PLANCK_KEYS = ("preflog", "tref", "totplnk", "totplnkderiv")
@@ -143,36 +142,34 @@ def rrtmg_lw_eager(lw, ple, play, tlay, tlev, tsfc, emis,
       doy scalar; taua optional [ncol, nlay, 16];
       cloud_mh/cloud_lm: 1-based super-layer boundary layer indices.
     plain=True runs the plain PyTorch twins of K1, K3, K4 and K9 whatever
-    the device: the reference the kernels are held to on the card.
+    the device (the body under kernels.twins.twins): the reference the
+    kernels are held to on the card.
 
     Returns dict: uflx, dflx, uflxc, dflxc [ncol, nlay+1] (W/m^2,
     positive), duflx_dts, duflxc_dts, olrb, dolrb_dts [ncol, 16],
     clear_counts [ncol, 4].
     """
-    plev = ple * 0.01
-    alpha, rcorr = overlap_params(zm, alat, doy)
-    absi, absl = band_abs_coeffs_lw(rei, rel, lw.cloud_tables,
-                                    iceflag=iceflag, liqflag=liqflag,
-                                    plain=plain)
-    zcw = lw.zcw_cols(inhm)
-    mcica = mcica_optics_lw_plain if plain else mcica_optics_lw
-    taumol = taumol_lw if plain else taumol_lw_fast
-    transfer = rtrnmc if plain else rtrnmc_fast
-    taucmc, cloudy, counts = mcica(
-        play.contiguous(), alpha, rcorr, cldf, ciwp, clwp, _sigma_class(cldf),
-        absi.contiguous(), absl.contiguous(), zcw, cloud_mh=cloud_mh,
-        cloud_lm=cloud_lm, inhm=inhm, cwp_tiny=1.0e-20)
+    with twins(plain):
+        plev = ple * 0.01
+        alpha, rcorr = overlap_params(zm, alat, doy)
+        absi, absl = band_abs_coeffs_lw(rei, rel, lw.cloud_tables,
+                                        iceflag=iceflag, liqflag=liqflag)
+        taucmc, cloudy, counts = mcica_optics_lw(
+            play.contiguous(), alpha, rcorr, cldf, ciwp, clwp,
+            _sigma_class(cldf), absi.contiguous(), absl.contiguous(),
+            lw.zcw_cols(inhm), cloud_mh=cloud_mh, cloud_lm=cloud_lm,
+            inhm=inhm, cwp_tiny=1.0e-20)
 
-    coefs = setcoef_lw(play, tlay, plev, tlev, tsfc, emis,
-                       h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr,
-                       covmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr,
-                       lw.planck_tables, dudts=dudts, plain=plain)
-    taug, pfracs = taumol(coefs, lw.taumol_tables, taua)
-    out = transfer(emis.contiguous(), taug, pfracs, cloudy, taucmc,
-                      coefs.planklay, coefs.planklev, coefs.plankbnd,
-                      coefs.dplankbnd_dts, coefs.pwvcm, dudts=dudts)
-    out["clear_counts"] = counts
-    return out
+        coefs = setcoef_lw(play, tlay, plev, tlev, tsfc, emis,
+                           h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr,
+                           covmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr,
+                           lw.planck_tables, dudts=dudts)
+        taug, pfracs = taumol_lw_fast(coefs, lw.taumol_tables, taua)
+        out = rtrnmc_fast(emis.contiguous(), taug, pfracs, cloudy, taucmc,
+                          coefs.planklay, coefs.planklev, coefs.plankbnd,
+                          coefs.dplankbnd_dts, coefs.pwvcm, dudts=dudts)
+        out["clear_counts"] = counts
+        return out
 
 
 

@@ -6,8 +6,8 @@ planklay, planklev, plankbnd, dplankbnd), its plain twins, compute in
 plain PyTorch, bit for bit: the factor, its floor clamped to the table,
 the weight and the interpolation of the two rows, in one pass that writes
 each output row once, where the twins gather the rows and run each step
-as a pass of its own. band_abs_coeffs_lw and setcoef_lw call it for CUDA
-tensors unless plain.
+as a pass of its own. band_abs_coeffs_lw and setcoef_lw call it where
+kernels.twins.use_kernel.
 
 The ice factor (reice - 2) / 3 is rounded as PyTorch rounds the twin's on
 the card: a CUDA tensor divided by a Python number is multiplied by the

@@ -15,6 +15,7 @@ from the host (such a copy would synchronise the stream).
 import torch
 
 from ...kernels import build
+from ...kernels.twins import use_kernel
 from .rtrnmc import rtrnmc
 
 OUT_LEVEL = ("uflx", "dflx", "uflxc", "dflxc", "duflx_dts", "duflxc_dts")
@@ -46,9 +47,9 @@ def rtrnmc_fast(semiss, taug, pfracs, cloudy, taucmc, planklay, planklev,
                 plankbnd, dplankbnd_dts, pwvcm, dudts=True):
     """K4: same contract as rtrnmc.rtrnmc.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     """
-    if taug.device.type == "cpu":
+    if not use_kernel(taug):
         return rtrnmc(semiss, taug, pfracs, cloudy, taucmc, planklay,
                       planklev, plankbnd, dplankbnd_dts, pwvcm, dudts=dudts)
     ins = (semiss, taug, pfracs, cloudy, taucmc, planklay, planklev,

@@ -10,6 +10,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import GRAV, AVOGAD, AMD, AMW
+from ...kernels.twins import use_kernel
 from . import lw_rows_cuda
 
 _STPFAC = 296.0 / 1013.0
@@ -83,8 +84,7 @@ def planck_rows_plain(tavel, tz, tbound, semiss, tables, dudts=True):
 
 def setcoef_lw(pavel, tavel, pz, tz, tbound, semiss,
                h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, covmr,
-               cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, tables, dudts=True,
-               plain=False):
+               cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, tables, dudts=True):
     """Compute LWCoefs.
 
     pavel/tavel: [..., nlay] layer p [hPa] / T [K].
@@ -94,9 +94,9 @@ def setcoef_lw(pavel, tavel, pz, tz, tbound, semiss,
     tables: dict with preflog (59,), tref (59,), totplnk and
     totplnkderiv (181, 16) float32 tensors.
 
-    The Planck rows come from kernel K9 (lw_rows_cuda.planck_rows) for
-    CUDA tensors unless plain, the same values bit for bit; CPU tensors
-    and plain run planck_rows_plain, its twin.
+    The Planck rows come from kernel K9 (lw_rows_cuda.planck_rows) where
+    kernels.twins.use_kernel, the same values bit for bit; otherwise from
+    planck_rows_plain, its twin.
     """
     dtype = pavel.dtype
     preflog = tables["preflog"]
@@ -116,7 +116,7 @@ def setcoef_lw(pavel, tavel, pz, tz, tbound, semiss,
     psfc = torch.maximum(pz[..., 0], pz[..., -1])
     pwvcm = wvsh * (1.0e3 * psfc) / (1.0e2 * GRAV)
 
-    if not plain and tavel.device.type == "cuda":
+    if use_kernel(tavel):
         plankbnd, dplankbnd, planklay, planklev = lw_rows_cuda.planck_rows(
             tavel.contiguous(), tz.contiguous(), tbound.contiguous(),
             semiss.contiguous(), tables["totplnk"], tables["totplnkderiv"],

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ...kernels.twins import use_kernel
 from .spcvmc import (BAND_KEYS, LEVEL_KEYS, NIR_MASK, NIR_SEL, PAR_SEL,
                      SFC_KEYS, UV_MASK, UVR_SEL, spcvmc_sw)
 
@@ -72,9 +73,9 @@ def spcvmc_fast(coefs, taug, taur, sfluxzen, mu0, albdir, albdif, cldymc,
                 adjflux=1.0, ncld=None):
     """K6: same contract as spcvmc.spcvmc_sw.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     """
-    if taug.device.type == "cpu":
+    if not use_kernel(taug):
         return spcvmc_sw(coefs, taug, taur, sfluxzen, mu0, albdir, albdif,
                          cldymc, taucmc, ssacmc, asmcmc, taua=taua,
                          ssaa=ssaa, asya=asya, adjflux=adjflux, ncld=ncld)

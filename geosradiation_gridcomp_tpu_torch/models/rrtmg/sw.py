@@ -4,8 +4,8 @@ Port of geosradiation_gridcomp_tpu/models/rrtmg/sw.py through its non-TPU
 branch: optional day/cloud column sort with the static nlit slice ->
 McICA subcolumns and delta-scaled cloud optics (K2) -> setcoef -> NRLSSI2
 solar source -> taumol (K5) -> spcvmc two-stream and adding (K6) -> night
-zeros and scatter-back. Each kernel wrapper runs its plain twin for CPU
-tensors and its CUDA kernel for CUDA tensors.
+zeros and scatter-back. Each kernel function launches its CUDA kernel
+where kernels.twins.use_kernel and runs its plain twin otherwise.
 
 The reference jits rrtmg_sw (models/rrtmg/sw.py:36): here its body is
 `rrtmg_sw_eager` and `rrtmg_sw` that body as a captured entry
@@ -19,19 +19,18 @@ import torch
 from torch import nn
 
 from ...driver.compiled import captured, with_kernels
+from ...kernels.twins import twins
 from ...ops.mcica import _sigma_class, overlap_params, zcw_class_columns
-from ...ops.mcica_cuda import mcica_optics_sw, mcica_optics_sw_plain
+from ...ops.mcica_cuda import mcica_optics_sw
 from ...tables import on_device
 from .cldprmc_sw import (CLOUD_TABLE_KEYS, ICE_TABLE_KEYS, CloudPackSW,
                          pack_cloud_tables_sw, sw_cloud_tables)
 from .nrlssi2 import solar_source_weights
 from .setcoef_sw import setcoef_sw
-from .spcvmc import spcvmc_sw
 from .spcvmc_cuda import device_weights, spcvmc_fast
 from .tables_sw import NGPTSW, sw_tables
 from .taumol_lw import TaumolTables
-from .taumol_sw import (solar_source_tables, sfluxzen_only, taumol_sw,
-                        taumol_tables)
+from .taumol_sw import solar_source_tables, sfluxzen_only, taumol_tables
 from .taumol_sw_cuda import taumol_sw_fast
 
 # SW seed order: reversed against LW (rrtmg_sw_rad.F90:1402)
@@ -147,77 +146,81 @@ def rrtmg_sw_eager(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
         cloudy-first sort puts them first): the all-sky solve runs on
         those only. Same caller contract as nlit.
     plain=True runs the plain PyTorch twins of K2, K5 and K6 whatever the
-    device: the reference the kernels are held to on the card.
+    device (the body under kernels.twins.twins): the reference the
+    kernels are held to on the card.
 
     Returns dict of fluxes (W/m^2): the level profiles [ncol, nlay+1]
     (bbfu, bbfd, bbcu, bbcd, direct, UV and NIR variants), the surface
     quantities [ncol] and band fluxes [ncol, 14] of spcvmc_sw, and
     clear_counts [ncol, 4] (skipped columns read fully clear).
     """
-    ncol_full = cldf.shape[0]
-    if nlit is not None and nlit >= ncol_full:
-        nlit = None
-    sort_clear = nlit is not None or ncld is not None
-    if sort_clear:
-        clearcol = (~(cldf > 0.0).any(dim=1)).to(torch.int32)
-        key = clearcol if nlit is None \
-            else 2 * (coszen <= 0.0).to(torch.int32) + clearcol
-        perm = torch.argsort(key, stable=True)
-        inv = torch.argsort(perm)
-        keep = perm if nlit is None else perm[:nlit]
-        (ple, play, tlay, coszen, albdir_uv, albdif_uv, albdir_nir,
-         albdif_nir, h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr, cldf, ciwp,
-         clwp, rei, rel, zm, alat, taua, ssaa, asya) = (
-            None if x is None else x[keep]
-            for x in (ple, play, tlay, coszen, albdir_uv, albdif_uv,
-                      albdir_nir, albdif_nir, h2ovmr, o3vmr, co2vmr,
-                      ch4vmr, o2vmr, cldf, ciwp, clwp, rei, rel, zm, alat,
-                      taua, ssaa, asya))
-    else:
-        ncld = None
+    with twins(plain):
+        ncol_full = cldf.shape[0]
+        if nlit is not None and nlit >= ncol_full:
+            nlit = None
+        sort_clear = nlit is not None or ncld is not None
+        if sort_clear:
+            clearcol = (~(cldf > 0.0).any(dim=1)).to(torch.int32)
+            key = clearcol if nlit is None \
+                else 2 * (coszen <= 0.0).to(torch.int32) + clearcol
+            perm = torch.argsort(key, stable=True)
+            inv = torch.argsort(perm)
+            keep = perm if nlit is None else perm[:nlit]
+            (ple, play, tlay, coszen, albdir_uv, albdif_uv, albdir_nir,
+             albdif_nir, h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr, cldf, ciwp,
+             clwp, rei, rel, zm, alat, taua, ssaa, asya) = (
+                None if x is None else x[keep]
+                for x in (ple, play, tlay, coszen, albdir_uv, albdif_uv,
+                          albdir_nir, albdif_nir, h2ovmr, o3vmr, co2vmr,
+                          ch4vmr, o2vmr, cldf, ciwp, clwp, rei, rel, zm,
+                          alat, taua, ssaa, asya))
+        else:
+            ncld = None
 
-    if liqflag != 1:
-        raise NotImplementedError("only liqflag=1 (Hu & Stamnes) exists")
-    alpha, rcorr = overlap_params(zm, alat, doy)
-    mcica = mcica_optics_sw_plain if plain else mcica_optics_sw
-    taucmc, ssacmc, asmcmc, cldymc, counts = mcica(
-        play.contiguous(), alpha, rcorr, cldf, ciwp, clwp, _sigma_class(cldf),
-        rei.contiguous(), rel.contiguous(), sw.cloud_pack(iceflag),
-        sw.zcw_cols(inhm), cloud_mh=cloud_mh, cloud_lm=cloud_lm,
-        seed_order=SEED_ORDER_SW, inhm=inhm, cwp_tiny=1.0e-20)
+        if liqflag != 1:
+            raise NotImplementedError(
+                "only liqflag=1 (Hu & Stamnes) exists")
+        alpha, rcorr = overlap_params(zm, alat, doy)
+        taucmc, ssacmc, asmcmc, cldymc, counts = mcica_optics_sw(
+            play.contiguous(), alpha, rcorr, cldf, ciwp, clwp,
+            _sigma_class(cldf), rei.contiguous(), rel.contiguous(),
+            sw.cloud_pack(iceflag), sw.zcw_cols(inhm), cloud_mh=cloud_mh,
+            cloud_lm=cloud_lm, seed_order=SEED_ORDER_SW, inhm=inhm,
+            cwp_tiny=1.0e-20)
 
-    coefs = setcoef_sw(play, tlay, ple * 0.01, h2ovmr, o3vmr, co2vmr,
-                       ch4vmr, o2vmr, sw.reference_tables)
-    svw = solar_source_weights(isolvar, scon, solcycfrac, indsolvar, bndscl)
-    taug, taur = (taumol_sw if plain else taumol_sw_fast)(
-        coefs, sw.taumol_tables)
-    sfluxzen = sfluxzen_only(coefs, sw.solar_sources(svw))
+        coefs = setcoef_sw(play, tlay, ple * 0.01, h2ovmr, o3vmr, co2vmr,
+                           ch4vmr, o2vmr, sw.reference_tables)
+        svw = solar_source_weights(isolvar, scon, solcycfrac, indsolvar,
+                                   bndscl)
+        taug, taur = taumol_sw_fast(coefs, sw.taumol_tables)
+        sfluxzen = sfluxzen_only(coefs, sw.solar_sources(svw))
 
-    uv = on_device(_UVBAND, cldf.device)
-    albdir = torch.where(uv, albdir_uv[:, None], albdir_nir[:, None])
-    albdif = torch.where(uv, albdif_uv[:, None], albdif_nir[:, None])
+        uv = on_device(_UVBAND, cldf.device)
+        albdir = torch.where(uv, albdir_uv[:, None], albdir_nir[:, None])
+        albdif = torch.where(uv, albdif_uv[:, None], albdif_nir[:, None])
 
-    out = (spcvmc_sw if plain else spcvmc_fast)(
-        coefs, taug, taur, sfluxzen, coszen, albdir, albdif, cldymc, taucmc,
-        ssacmc, asmcmc, taua=taua, ssaa=ssaa, asya=asya, adjflux=adjes,
-        ncld=ncld)
-    # zero out fluxes for night columns
-    day = (coszen > 0.0).to(taug.dtype)
-    out = {k: v * day.reshape((-1,) + (1,) * (v.ndim - 1))
-           for k, v in out.items()}
-    out["clear_counts"] = counts
-    if nlit is not None:
-        # scatter back: exact zeros for skipped (night) columns, which
-        # read fully clear
-        pad = ncol_full - nlit
-
-        def restore(v, fill):
-            return torch.cat([v, v.new_full((pad,) + v.shape[1:], fill)])[inv]
-        out = {k: restore(v, NGPTSW if k == "clear_counts" else 0)
+        out = spcvmc_fast(
+            coefs, taug, taur, sfluxzen, coszen, albdir, albdif, cldymc,
+            taucmc, ssacmc, asmcmc, taua=taua, ssaa=ssaa, asya=asya,
+            adjflux=adjes, ncld=ncld)
+        # zero out fluxes for night columns
+        day = (coszen > 0.0).to(taug.dtype)
+        out = {k: v * day.reshape((-1,) + (1,) * (v.ndim - 1))
                for k, v in out.items()}
-    elif sort_clear:
-        out = {k: v[inv] for k, v in out.items()}
-    return out
+        out["clear_counts"] = counts
+        if nlit is not None:
+            # scatter back: exact zeros for skipped (night) columns, which
+            # read fully clear
+            pad = ncol_full - nlit
+
+            def restore(v, fill):
+                return torch.cat(
+                    [v, v.new_full((pad,) + v.shape[1:], fill)])[inv]
+            out = {k: restore(v, NGPTSW if k == "clear_counts" else 0)
+                   for k, v in out.items()}
+        elif sort_clear:
+            out = {k: v[inv] for k, v in out.items()}
+        return out
 
 
 def _static_weights(value, name):

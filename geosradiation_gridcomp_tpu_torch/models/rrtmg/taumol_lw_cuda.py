@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ...kernels.twins import use_kernel
 from .taumol_lw import BAND_KEYS, GLOBAL_KEYS, PARTS, taumol_lw
 
 # per-cell inputs, in the row order of the kernel's float and int planes
@@ -93,9 +94,9 @@ def _require(name, coefs, tabs, taua=None):
 def taumol_lw_fast(coefs, tabs, taua=None):
     """K3: same contract as taumol_lw.taumol_lw.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     """
-    if coefs.jp.device.type == "cpu":
+    if not use_kernel(coefs.jp):
         return taumol_lw(coefs, tabs, taua)
     _require("taumol_lw_fast", coefs, tabs, taua)
     if taua is not None and taua.shape != coefs.jp.shape + (16,):
@@ -110,13 +111,13 @@ def taumol_lw_bisect(coefs, tabs, parts):
     taumol_lw.PARTS; the others contribute zeros), for the cost bisection.
     Only the subsets of taumol_lw.VARIANTS are compiled.
 
-    CPU tensors take the plain twin (taumol_lw with parts); CUDA tensors
-    launch the kernel. Returns (taug, pfracs) [ncol, nlay, 140].
+    The plain twin (taumol_lw with parts) unless kernels.twins.use_kernel;
+    then the kernel. Returns (taug, pfracs) [ncol, nlay, 140].
     """
     parts = frozenset(parts)
     if not parts <= PARTS:
         raise ValueError(f"taumol_lw_bisect: unknown parts {parts - PARTS}")
-    if coefs.jp.device.type == "cpu":
+    if not use_kernel(coefs.jp):
         return taumol_lw(coefs, tabs, parts=parts)
     _require("taumol_lw_bisect", coefs, tabs)
     out = launch_bisect(build.library(), coefs, tabs, parts)

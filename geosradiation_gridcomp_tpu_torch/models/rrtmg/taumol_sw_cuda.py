@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ...kernels.twins import use_kernel
 from .taumol_sw import BAND_KEYS, taumol_sw
 
 # per-cell inputs, in the order of the kernel's field pointers
@@ -54,9 +55,9 @@ def launch(lib, coefs, tabs):
 def taumol_sw_fast(coefs, tabs):
     """K5: same contract as taumol_sw.taumol_sw.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     """
-    if coefs.jp.device.type == "cpu":
+    if not use_kernel(coefs.jp):
         return taumol_sw(coefs, tabs)
     fields = [getattr(coefs, k) for k in FLOAT_FIELDS + INT_FIELDS]
     build.require_cuda("taumol_sw_fast", tabs.pack, tabs.offsets, *fields)

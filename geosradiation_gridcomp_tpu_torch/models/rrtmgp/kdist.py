@@ -7,7 +7,7 @@ get_ngpt/get_nband/band limits, set_solar_variability(Mg, SB),
 gas_optics(...). KDistSW and KDistLW take their tables from an RRTMGSW /
 RRTMGLW module; their gas optics are setcoef then taumol, through kernel
 K5 (SW) and K3 (LW), and the LW Planck rows through K9, for CUDA tensors
-and the plain twins for CPU tensors or when `plain`. load_kdist_npz,
+and the plain twins otherwise (kernels.twins). load_kdist_npz,
 KDistLWNative and KDistSWNative carry an
 ingested RRTMGP coefficient set (the npz schema of the reference's
 tools/rrtmgp_ingest.py, documented in gas_optics.py) onto the device for
@@ -24,9 +24,8 @@ from ..rrtmg.setcoef_lw import setcoef_lw
 from ..rrtmg.setcoef_sw import setcoef_sw
 from ..rrtmg.tables_lw import NG_LW
 from ..rrtmg.tables_sw import NG_SW
-from ..rrtmg.taumol_lw import taumol_lw
 from ..rrtmg.taumol_lw_cuda import taumol_lw_fast
-from ..rrtmg.taumol_sw import sfluxzen_only, taumol_sw
+from ..rrtmg.taumol_sw import sfluxzen_only
 from ..rrtmg.taumol_sw_cuda import taumol_sw_fast
 from .gas_concs import GasConcs
 from .gas_optics import gas_optics_lw, gas_optics_sw
@@ -60,9 +59,8 @@ class KDistSW:
     """SW gas optics with an external (solar) source, on the tables of an
     RRTMGSW module `sw`."""
 
-    def __init__(self, sw, plain=False):
+    def __init__(self, sw):
         self.sw = sw
-        self.plain = plain
         self._svw = None        # solar variability weights
 
     # --- metadata surface used by the driver layer -----------------
@@ -112,8 +110,7 @@ class KDistSW:
                            g.get_vmr("ch4", like=tlay),
                            g.get_vmr("o2", like=tlay),
                            self.sw.reference_tables)
-        taumol = taumol_sw if self.plain else taumol_sw_fast
-        taug, taur = taumol(coefs, self.sw.taumol_tables)
+        taug, taur = taumol_sw_fast(coefs, self.sw.taumol_tables)
         sflux = sfluxzen_only(coefs, self.sw.solar_sources(self._svw))
         return taug, taur, sflux
 
@@ -122,9 +119,8 @@ class KDistLW:
     """LW gas optics with an internal (Planck) source, on the tables of an
     RRTMGLW module `lw`."""
 
-    def __init__(self, lw, plain=False):
+    def __init__(self, lw):
         self.lw = lw
-        self.plain = plain
 
     def source_is_external(self):
         return False
@@ -161,9 +157,8 @@ class KDistLW:
             *(g.get_vmr(k, like=tlay) for k in (
                 "h2o", "o3", "co2", "ch4", "n2o", "o2", "co", "cfc11",
                 "cfc12", "hcfc22", "ccl4")),
-            self.lw.planck_tables, dudts=dudts, plain=self.plain)
-        taumol = taumol_lw if self.plain else taumol_lw_fast
-        taug, pfracs = taumol(coefs, self.lw.taumol_tables)
+            self.lw.planck_tables, dudts=dudts)
+        taug, pfracs = taumol_lw_fast(coefs, self.lw.taumol_tables)
         sources = dict(pfracs=pfracs, planklay=coefs.planklay,
                        planklev=coefs.planklev, plankbnd=coefs.plankbnd,
                        dplankbnd_dts=coefs.dplankbnd_dts,

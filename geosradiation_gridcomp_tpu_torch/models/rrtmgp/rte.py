@@ -7,13 +7,12 @@ the PIFM layer R/T and vertical adding of models/rrtmg/spcvmc.py; its
 optics are not spcvmc_sw's (w clipped to 1 - 1e-6, delta scaling with
 f = g^2, no UV/PAR outputs), so kernel K6 does not compute it. rte_lw is
 the variable-diffusivity LW transport of models/rrtmg/rtrnmc.py: kernel
-K4 for CUDA tensors, the plain twin for CPU tensors or when `plain`.
+K4 for CUDA tensors, the plain twin otherwise (kernels.twins).
 """
 
 import torch
 
 from ...tables import on_device
-from ..rrtmg.rtrnmc import rtrnmc
 from ..rrtmg.rtrnmc_cuda import rtrnmc_fast
 from ..rrtmg.spcvmc import reftra_sw, vrtqdr_sw
 from .sampling import gpoint_bands
@@ -84,10 +83,10 @@ def rte_sw(taug, taur, tau_cld, ssa_cld, g_cld, toa_src, mu0,
 
 
 def rte_lw(taug, sources, sfc_emis, tau_cld=None, cld_mask=None,
-           dudts=False, plain=False):
+           dudts=False):
     """Broadband LW fluxes from per-g-point optical depths and Planck
     sources (no-scattering transport with the variable diffusivity angle
-    of rtrnmc; kernel K4 unless plain).
+    of rtrnmc; kernel K4, or its twin: kernels.twins).
 
     taug: [ncol, nlay, ngpt]; sources: dict from KDistLW.gas_optics;
     sfc_emis: [ncol, nbnd]; tau_cld: optional McICA per-g-point cloud
@@ -103,7 +102,7 @@ def rte_lw(taug, sources, sfc_emis, tau_cld=None, cld_mask=None,
     else:
         cloudy = cld_mask if cld_mask is not None \
             else (tau_cld > 0.0).any(dim=-1)
-    out = (rtrnmc if plain else rtrnmc_fast)(
+    out = rtrnmc_fast(
         sfc_emis.contiguous(), taug, sources["pfracs"], cloudy, tau_cld,
         sources["planklay"], sources["planklev"], sources["plankbnd"],
         sources["dplankbnd_dts"], sources["pwvcm"], dudts=dudts)

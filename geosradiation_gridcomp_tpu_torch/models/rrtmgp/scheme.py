@@ -9,7 +9,7 @@ coefficient file the RRTMG-reduced facade serves as the k-distribution:
 its gas optics run kernels K3 (LW) and K5 (SW), rte_lw runs K4, the
 McICA draws run K8 (ops/mcica_gmr_cuda.py) and the LW table rows (the
 Planck rows and the cloud rows of the LW band cloud optics) K9, each on
-CUDA tensors (the plain twins for CPU tensors or when `plain`); the rest
+CUDA tensors (the plain twins otherwise: kernels.twins); the rest
 of the band cloud optics and rte_sw are plain PyTorch. With one, the
 native engine (gas_optics.py, rte_native.py) runs, plain PyTorch but for
 K8's draws and K9's LW cloud rows on CUDA tensors.
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ...driver.compiled import captured, with_kernels
+from ...kernels.twins import twins, use_kernel
 from ...ops import mcica_gmr_cuda, threefry
 from ...ops.mcica import (_sigma_class, column_blocks, overlap_params,
                           state_seed_key, zcw_lookup_class)
@@ -102,21 +103,19 @@ def _band_cloud_optics_sw(ciwp, clwp, rei, rel, tables, iceflag, liqflag):
     return tuple(x.transpose(1, 2) for x in (tau, ssa, asm))
 
 
-def _band_cloud_optics_lw(ciwp, clwp, rei, rel, tables, iceflag, liqflag,
-                          plain=False):
+def _band_cloud_optics_lw(ciwp, clwp, rei, rel, tables, iceflag, liqflag):
     """Band-resolved LW cloud absorption optical depth for fully-cloudy
     cells, [ncol, nlay, 16] (cldprmc_lw at one g-point per band); the
-    cloud rows through kernel K9 on CUDA tensors unless plain."""
+    cloud rows through kernel K9 (band_abs_coeffs_lw)."""
     absice, absliq = band_abs_coeffs_lw(rei, rel, tables, iceflag=iceflag,
-                                        liqflag=liqflag, plain=plain)
+                                        liqflag=liqflag)
     ci, cl = ciwp[..., None], clwp[..., None]
     zero = ciwp.new_zeros(())
     return (torch.where(ci > 0.0, ci * absice, zero)
             + torch.where(cl > 0.0, cl * absliq, zero))
 
 
-def _gen_max_ran_mask(play, zm, alat, doy, cldf, ngpt, zcw_cols,
-                      plain=False):
+def _gen_max_ran_mask(play, zm, alat, doy, cldf, ngpt, zcw_cols):
     """GEN_MAX_RAN_OVERLAP cloud mask + condensate scaling
     (GEOS_SolarGridComp.F90:5186-5299): exponential layer-pair
     correlations (Oreopoulos-2012 decorrelation lengths) for presence
@@ -131,12 +130,12 @@ def _gen_max_ran_mask(play, zm, alat, doy, cldf, ngpt, zcw_cols,
     (inhm 0: zcw = 1). Returns cld_mask bool [ncol, nlay, ngpt] and zcw
     [ncol, nlay, ngpt] (zero where clear).
 
-    CUDA tensors take kernel K8 (ops/mcica_gmr_cuda.py), the same values
-    bit for bit, unless plain; CPU tensors and plain run the body below,
-    K8's plain twin.
+    Kernel K8 (ops/mcica_gmr_cuda.py) where kernels.twins.use_kernel,
+    the same values bit for bit; otherwise the body below, K8's plain
+    twin.
     """
     alpha, rcorr = overlap_params(zm, alat, doy)
-    if not plain and cldf.device.type == "cuda":
+    if use_kernel(cldf):
         return mcica_gmr_cuda.gen_max_ran_mask(
             play.contiguous(), alpha, rcorr, cldf.contiguous(), ngpt,
             zcw_cols)
@@ -210,45 +209,46 @@ def rrtmgp_sw_eager(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
     kdist_path: when set, an ingested RRTMGP coefficient file
     (tools/rrtmgp_ingest.py npz) runs through the NATIVE interpolation
     engine + band-agnostic RTE; without it the RRTMG-reduced facade
-    serves as the k-distribution (kernel K5 unless plain).
+    serves as the k-distribution (kernel K5). plain=True runs every
+    kernel's plain twin (the body under kernels.twins.twins).
 
     Returns dict bbfu, bbfd, bbfddir, bbcu, bbcd [ncol, nlay+1] (W/m^2).
     """
-    if kdist_path is not None:
-        return _rrtmgp_sw_native(
-            _kdist_sw_native(kdist_path, str(tlay.device)), sw, ple, play,
-            tlay, coszen, albdir_uv, albdif_uv, albdir_nir, albdif_nir,
-            h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr,
-            cldf, ciwp, clwp, rei, rel, zm, alat, doy,
-            taua, ssaa, asya, tsi_scale, iceflag, liqflag, inhm)
-    kd = KDistSW(sw, plain=plain).set_solar_variability(mg, sb)
-    gas = _gas_sw(h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr)
-    taug, taur, toa_src = kd.gas_optics(play, tlay, ple * 0.01, gas)
-    if tsi_scale is not None:
-        toa_src = toa_src * tsi_scale[:, None]
+    with twins(plain):
+        if kdist_path is not None:
+            return _rrtmgp_sw_native(
+                _kdist_sw_native(kdist_path, str(tlay.device)), sw, ple, play,
+                tlay, coszen, albdir_uv, albdif_uv, albdir_nir, albdif_nir,
+                h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr,
+                cldf, ciwp, clwp, rei, rel, zm, alat, doy,
+                taua, ssaa, asya, tsi_scale, iceflag, liqflag, inhm)
+        kd = KDistSW(sw).set_solar_variability(mg, sb)
+        gas = _gas_sw(h2ovmr, o3vmr, co2vmr, ch4vmr, o2vmr)
+        taug, taur, toa_src = kd.gas_optics(play, tlay, ple * 0.01, gas)
+        if tsi_scale is not None:
+            toa_src = toa_src * tsi_scale[:, None]
 
-    lims = kd.get_band_lims_gpoint()
-    cld_mask, zcw = _gen_max_ran_mask(play, zm, alat, doy, cldf,
-                                      kd.get_ngpt(), _zcw_cols(sw, inhm),
-                                      plain)
-    tau_b, ssa_b, g_b = _band_cloud_optics_sw(
-        ciwp, clwp, rei, rel, sw.cloud_tables, iceflag, liqflag)
-    props = draw_samples(cld_mask, dict(tau=tau_b, ssa=ssa_b, g=g_b), lims)
-    # condensate-inhomogeneity scaling of tau (GC :5293-5299)
-    tau_cld = props["tau"] * zcw
+        lims = kd.get_band_lims_gpoint()
+        cld_mask, zcw = _gen_max_ran_mask(play, zm, alat, doy, cldf,
+                                          kd.get_ngpt(), _zcw_cols(sw, inhm))
+        tau_b, ssa_b, g_b = _band_cloud_optics_sw(
+            ciwp, clwp, rei, rel, sw.cloud_tables, iceflag, liqflag)
+        props = draw_samples(cld_mask, dict(tau=tau_b, ssa=ssa_b, g=g_b), lims)
+        # condensate-inhomogeneity scaling of tau (GC :5293-5299)
+        tau_cld = props["tau"] * zcw
 
-    alb_dir, alb_dif = _sw_albedos(_UVBAND, albdir_uv, albdif_uv,
-                                   albdir_nir, albdif_nir)
-    aero = dict(tau_aer=taua, ssa_aer=ssaa, g_aer=asya)
-    allsky = rte_sw(taug, taur, tau_cld, props["ssa"], props["g"],
-                    toa_src, coszen, alb_dir, alb_dif, lims, **aero)
-    zero = torch.zeros_like(tau_cld)
-    clrsky = rte_sw(taug, taur, zero, zero, zero, toa_src, coszen,
-                    alb_dir, alb_dif, lims, **aero)
-    day = (coszen > 0.0).to(taug.dtype)[:, None]
-    return dict(bbfu=allsky["flux_up"] * day, bbfd=allsky["flux_dn"] * day,
-                bbfddir=allsky["flux_dir"] * day,
-                bbcu=clrsky["flux_up"] * day, bbcd=clrsky["flux_dn"] * day)
+        alb_dir, alb_dif = _sw_albedos(_UVBAND, albdir_uv, albdif_uv,
+                                       albdir_nir, albdif_nir)
+        aero = dict(tau_aer=taua, ssa_aer=ssaa, g_aer=asya)
+        allsky = rte_sw(taug, taur, tau_cld, props["ssa"], props["g"],
+                        toa_src, coszen, alb_dir, alb_dif, lims, **aero)
+        zero = torch.zeros_like(tau_cld)
+        clrsky = rte_sw(taug, taur, zero, zero, zero, toa_src, coszen,
+                        alb_dir, alb_dif, lims, **aero)
+        day = (coszen > 0.0).to(taug.dtype)[:, None]
+        return dict(bbfu=allsky["flux_up"] * day, bbfd=allsky["flux_dn"] * day,
+                    bbfddir=allsky["flux_dir"] * day,
+                    bbcu=clrsky["flux_up"] * day, bbcd=clrsky["flux_dn"] * day)
 
 
 def _rrtmgp_sw_native(kd, sw, ple, play, tlay, coszen, albdir_uv,
@@ -313,34 +313,35 @@ def rrtmgp_lw_eager(lw, ple, play, tlay, tsfc, emis,
     kdist_path: when set, routes an ingested RRTMGP coefficient set
     (tools/rrtmgp_ingest.py npz) through the NATIVE engine +
     band-agnostic RTE; otherwise the RRTMG-reduced facade (kernels K3
-    and K4 unless plain).
+    and K4). plain=True runs every kernel's plain twin (the body under
+    kernels.twins.twins).
 
     Returns dict flux_up, flux_dn, flux_up_clr, flux_dn_clr
     [ncol, nlay+1], olrb [ncol, nbnd] (+ duflx_dts, duflxc_dts,
     dolrb_dts when dudts).
     """
-    gas = _gas_lw(h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, cfc11vmr,
-                  cfc12vmr, cfc22vmr, ccl4vmr, covmr)
-    plev = ple * 0.01
-    tlev = level_temperatures(play, tlay, plev, tsfc)
-    if kdist_path is not None:
-        return _rrtmgp_lw_native(
-            _kdist_lw_native(kdist_path, str(tlay.device)), lw, play, tlay,
-            plev, tlev, tsfc, emis, gas, cldf, ciwp, clwp, rei, rel, zm,
-            alat, doy, iceflag, liqflag, inhm, dudts)
-    kd = KDistLW(lw, plain=plain)
-    taug, sources = kd.gas_optics(play, tlay, plev, tlev, tsfc, emis, gas,
-                                  dudts=dudts)
+    with twins(plain):
+        gas = _gas_lw(h2ovmr, o3vmr, co2vmr, ch4vmr, n2ovmr, o2vmr, cfc11vmr,
+                      cfc12vmr, cfc22vmr, ccl4vmr, covmr)
+        plev = ple * 0.01
+        tlev = level_temperatures(play, tlay, plev, tsfc)
+        if kdist_path is not None:
+            return _rrtmgp_lw_native(
+                _kdist_lw_native(kdist_path, str(tlay.device)), lw, play, tlay,
+                plev, tlev, tsfc, emis, gas, cldf, ciwp, clwp, rei, rel, zm,
+                alat, doy, iceflag, liqflag, inhm, dudts)
+        kd = KDistLW(lw)
+        taug, sources = kd.gas_optics(play, tlay, plev, tlev, tsfc, emis, gas,
+                                      dudts=dudts)
 
-    lims = kd.get_band_lims_gpoint()
-    cld_mask, zcw = _gen_max_ran_mask(play, zm, alat, doy, cldf,
-                                      kd.get_ngpt(), _zcw_cols(lw, inhm),
-                                      plain)
-    tau_b = _band_cloud_optics_lw(ciwp, clwp, rei, rel, lw.cloud_tables,
-                                  iceflag, liqflag, plain)
-    tau_cld = draw_samples(cld_mask, dict(tau=tau_b), lims)["tau"] * zcw
-    return rte_lw(taug, sources, emis, tau_cld=tau_cld,
-                  cld_mask=cld_mask.any(dim=-1), dudts=dudts, plain=plain)
+        lims = kd.get_band_lims_gpoint()
+        cld_mask, zcw = _gen_max_ran_mask(play, zm, alat, doy, cldf,
+                                          kd.get_ngpt(), _zcw_cols(lw, inhm))
+        tau_b = _band_cloud_optics_lw(ciwp, clwp, rei, rel, lw.cloud_tables,
+                                      iceflag, liqflag)
+        tau_cld = draw_samples(cld_mask, dict(tau=tau_b), lims)["tau"] * zcw
+        return rte_lw(taug, sources, emis, tau_cld=tau_cld,
+                      cld_mask=cld_mask.any(dim=-1), dudts=dudts)
 
 
 def _rrtmgp_lw_native(kd, lw, play, tlay, plev, tlev, tsfc, emis, gas,

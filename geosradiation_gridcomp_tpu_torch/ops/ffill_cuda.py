@@ -13,6 +13,7 @@ chain of ops/mcica.py:_correlate fills.
 import torch
 
 from ..kernels import build
+from ..kernels.twins import use_kernel
 from .mcica import _correlate
 
 
@@ -42,9 +43,9 @@ def launch(lib, v, keep):
 def ffill(v, keep):
     """P1: same contract as ffill_plain, for [B, nlay, nsub] arrays.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     """
-    if v.device.type == "cpu":
+    if not use_kernel(v):
         return ffill_plain(v, keep)
     build.require_cuda("ffill", v, keep)
     if v.dim() != 3 or keep.shape != v.shape:

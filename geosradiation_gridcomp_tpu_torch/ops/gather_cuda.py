@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from ..kernels import build
+from ..kernels.twins import use_kernel
 
 LANES = 128
 BLOCK_ROWS = 64    # index rows per output block of gather_lanes
@@ -99,9 +100,9 @@ def gather_rows(idx, tab):
     ng. Each thread stores a vector of rows_vec floats (float4 where ng is
     a multiple of 4), the table read through the read-only path.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     """
-    if tab.device.type == "cpu":
+    if not use_kernel(tab):
         return gather_rows_plain(idx, tab)
     _require("gather_rows", idx, tab)
     if idx.dim() != 1:
@@ -115,10 +116,10 @@ def gather_lanes(idx2d, tabT):
     """P2, lanes: the pallas_gather2 contract (see gather_lanes_plain),
     with tabT resident in shared memory (at most 48 KB).
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     Indices must lie in [0, width) (the kernel clamps them to the table).
     """
-    if tabT.device.type == "cpu":
+    if not use_kernel(tabT):
         return gather_lanes_plain(idx2d, tabT)
     _require("gather_lanes", idx2d, tabT)
     if idx2d.dim() != 2 or idx2d.shape[1] != LANES \

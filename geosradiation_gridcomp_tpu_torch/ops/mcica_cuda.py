@@ -21,6 +21,7 @@ include the generator of csrc/mcica_gen.cuh.
 import torch
 
 from ..kernels import build
+from ..kernels.twins import use_kernel
 from ..models.rrtmg.cldprmc_lw import cldprmc_from_band_coeffs
 from ..models.rrtmg.cldprmc_sw import (ICE_TABLE_KEYS, LIQ_TABLE_KEYS,
                                        band_optics_coeffs_sw,
@@ -127,14 +128,14 @@ def mcica_optics_lw(play, alpha, rcorr, cldf, ciwp, clwp, sigcls, absice,
     """K1: McICA subcolumns + LW cloud optics + clear counts, the
     subkeys derived in the kernel from play.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     Same arguments and results as mcica_optics_lw_plain.
     """
     ins = (play, alpha, rcorr, cldf, ciwp, clwp, sigcls, absice, absliq,
            zcw_cols)
     kw = dict(cloud_mh=cloud_mh, cloud_lm=cloud_lm, inhm=inhm,
               cwp_tiny=cwp_tiny, seed_order=seed_order)
-    if cldf.device.type == "cpu":
+    if not use_kernel(cldf):
         return mcica_optics_lw_plain(*ins, **kw)
     _require("mcica_optics_lw", ins[:6], (sigcls,), (absice, absliq),
              zcw_cols)
@@ -175,10 +176,11 @@ def mcica_subcols_raw(keys, alpha, rcorr, cldf, *, nsub):
     mask and the forward-filled condensate cdf), as K1 and K2 draw them.
 
     keys [ncol, 4, 2] int64 (ops.mcica.subcolumn_keys); alpha, rcorr,
-    cldf [ncol, nlay] f32. CPU tensors take the plain twin; CUDA tensors
-    launch the kernel. Returns (cloudy, v3), each [ncol, nlay, nsub] f32.
+    cldf [ncol, nlay] f32. The plain twin unless
+    kernels.twins.use_kernel; then the kernel. Returns (cloudy, v3), each
+    [ncol, nlay, nsub] f32.
     """
-    if cldf.device.type == "cpu":
+    if not use_kernel(cldf):
         return mcica_subcols_raw_plain(keys, alpha, rcorr, cldf, nsub=nsub)
     build.require_cuda("mcica_subcols_raw", keys, alpha, rcorr, cldf)
     if any(t.dtype != torch.float32 for t in (alpha, rcorr, cldf)):
@@ -258,14 +260,14 @@ def mcica_optics_sw(play, alpha, rcorr, cldf, ciwp, clwp, sigcls, rei, rel,
     """K2: McICA subcolumns + delta-scaled SW cloud optics + clear counts,
     the subkeys and the band optics evaluated in the kernel.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    The plain twin unless kernels.twins.use_kernel; then the kernel.
     Same arguments and results as mcica_optics_sw_plain.
     """
     ins = (play, alpha, rcorr, cldf, ciwp, clwp, sigcls, rei, rel, cloud,
            zcw_cols)
     kw = dict(cloud_mh=cloud_mh, cloud_lm=cloud_lm, seed_order=seed_order,
               inhm=inhm, cwp_tiny=cwp_tiny)
-    if cldf.device.type == "cpu":
+    if not use_kernel(cldf):
         return mcica_optics_sw_plain(*ins, **kw)
     _require("mcica_optics_sw", (play, alpha, rcorr, cldf, ciwp, clwp, rei,
                                  rel), (sigcls,), (cloud.pack,), zcw_cols)

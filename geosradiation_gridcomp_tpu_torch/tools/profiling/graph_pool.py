@@ -11,8 +11,8 @@ allocator's history recorded, and prints: the pool's segments (count,
 GiB, by size), the bytes allocated at the peak and reserved, and the
 segments the capture opened by size and the innermost frame of the port
 that asked for them. --plain-draws runs the McICA draws
-(models/rrtmgp/scheme.py:_gen_max_ran_mask) on their plain body instead
-of kernel K8, everything else as it is, so that two runs compare the pool
+(models/rrtmgp/scheme.py:_gen_max_ran_mask) on their plain body, under
+kernels.twins.twins, instead of kernel K8, everything else as it is, so that two runs compare the pool
 with and without K8. The caching allocator's settings
 (PYTORCH_CUDA_ALLOC_CONF) are the process's. Raises without a CUDA
 device.
@@ -25,6 +25,7 @@ import torch
 
 from ...config import RadiationConfig, Scheme
 from ...driver.step import radiation_refresh
+from ...kernels.twins import twins
 from ...models.rrtmg.lw import RRTMGLW
 from ...models.rrtmg.sw import RRTMGSW
 from ...models.rrtmgp import scheme
@@ -59,8 +60,11 @@ def run(dev, ncol, plain_draws=False):
     (the allocator's snapshot entries) and the opened_by counter."""
     if plain_draws:
         body = scheme._gen_max_ran_mask
-        scheme._gen_max_ran_mask = \
-            lambda *a, plain=False: body(*a[:7], plain=True)
+
+        def draws_on_twin(*args):
+            with twins():
+                return body(*args)
+        scheme._gen_max_ran_mask = draws_on_twin
     inp = example_inputs(ncol, NLEV, seed=0, device=dev)
     cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
     ple0 = inp.ple[0].cpu().numpy()

@@ -299,6 +299,7 @@ def lw_cloud_gathers(torch, dev):
     recorded from band_abs_coeffs_lw's plain body on scene.example_inputs'
     radii (the refresh passes inp.ri and inp.rl to it unchanged; on the
     card the refresh takes kernel K9 in its place)."""
+    from geosradiation_gridcomp_tpu_torch.kernels.twins import twins
     from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
     from geosradiation_gridcomp_tpu_torch.scene import example_inputs
     inp = example_inputs(NCOL, NLEV, seed=SEED, device=dev)
@@ -311,7 +312,8 @@ def lw_cloud_gathers(torch, dev):
         return interp(tab, index, fint)
     cldprmc_lw._interp_rows = record
     try:
-        cldprmc_lw.band_abs_coeffs_lw(inp.ri, inp.rl, tables, plain=True)
+        with twins():
+            cldprmc_lw.band_abs_coeffs_lw(inp.ri, inp.rl, tables)
     finally:
         cldprmc_lw._interp_rows = interp
     out = {}

@@ -194,6 +194,7 @@ def rats_case():
         rats_refresh, rats_update)
     from geosradiation_gridcomp_tpu_torch.driver.radiation import \
         irrad_refresh
+    from geosradiation_gridcomp_tpu_torch.kernels.twins import twins
     torch.set_num_threads(1)
     cfg = harness.read_json(os.path.join(BENCH, "configs",
                                          "rrtmg_rats_l72.json"))
@@ -201,8 +202,9 @@ def rats_case():
     pcfg = program.port_config(cfg)
     inp = program.port_inputs(arrays, "cpu")
     ict, icb = program.superlayers(pcfg, arrays)
-    port = rats_refresh(inp, 172.25, pcfg, ict, icb, plain=True)
-    irr = irrad_refresh(inp, 172.25, pcfg, ict, icb, plain=True)
+    with twins():
+        port = rats_refresh(inp, 172.25, pcfg, ict, icb)
+        irr = irrad_refresh(inp, 172.25, pcfg, ict, icb)
     ts = inp.tsinst + 0.6
     ref = RatsReference(Reference(cfg, arrays, "cpu", 40))
     want = ref.refresh(172.25)

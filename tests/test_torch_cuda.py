@@ -80,6 +80,7 @@ from geosradiation_gridcomp_tpu_torch.driver.compiled import disable_capture
 from geosradiation_gridcomp_tpu_torch.driver.diagnostics import (
     RATS_GASES, rats_refresh, rats_update)
 from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+from geosradiation_gridcomp_tpu_torch.kernels.twins import twins
 from geosradiation_gridcomp_tpu_torch.models import chou_lw as chou_lw_mod
 from geosradiation_gridcomp_tpu_torch.models import chou_sw as chou_sw_mod
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
@@ -350,7 +351,8 @@ def test_refresh_runs_the_kernels(case):
     assert all(LAUNCHES[k] == 1
                for k in ("mcica_optics_lw", "taumol_lw", "rtrnmc"))
     assert LAUNCHES["lw_rows"] == 2             # K9: cloud and Planck rows
-    ref = rad.irrad_refresh(inp, DOY, cfg, 69, 71, lw=case["lw"], plain=True)
+    with twins():
+        ref = rad.irrad_refresh(inp, DOY, cfg, 69, 71, lw=case["lw"])
     for f in st._fields:
         assert relmax(getattr(st, f), getattr(ref, f)) <= 5e-5, f
 
@@ -511,7 +513,8 @@ def test_k8_equals_plain_at_c90(dev, ngpt):
         args = (play, zm, inp.lats, DOY, inp.fcld, ngpt, cols)
         LAUNCHES.clear()
         (got,) = _sync_free(lambda: gp._gen_max_ran_mask(*args))
-        want = gp._gen_max_ran_mask(*args, plain=True)
+        with twins():
+            want = gp._gen_max_ran_mask(*args)
         assert dict(LAUNCHES) == {"mcica_gmr": 1}
         assert got[0].shape == (8100, NLEV, ngpt)
         assert bool(want[0].any()) and not bool(want[0].all())
@@ -601,7 +604,8 @@ def test_k9_cloud_rows_equal_plain_at_c90(dev, iceflag):
     tables = lw.cloud_tables
     # the twin first: iceflag 1's band map is copied to the card at its
     # first use on a device (tables.on_device), which synchronises
-    want = band_abs_coeffs_lw(rei, rel, tables, iceflag=iceflag, plain=True)
+    with twins():
+        want = band_abs_coeffs_lw(rei, rel, tables, iceflag=iceflag)
     LAUNCHES.clear()
     (got,) = _sync_free(lambda: band_abs_coeffs_lw(rei, rel, tables,
                                                    iceflag=iceflag))
@@ -615,8 +619,8 @@ def test_k9_cloud_rows_equal_plain_at_c90(dev, iceflag):
 def test_k9_planck_rows_equal_plain_at_c90(dev, dudts):
     """K9's Planck rows at 8,100 x 72 bitwise equal to planck_rows_plain,
     temperatures below 160 K and above 340 K included, one launch a call,
-    sync-free; and setcoef_lw with them bitwise equal to setcoef_lw with
-    plain=True in every field."""
+    sync-free; and setcoef_lw with them bitwise equal to setcoef_lw under
+    twins() in every field."""
     inp, tlev, emis, lw = _c90_face(dev)
     edges = torch.tensor([100.0, 159.5, 160.0, 161.0, 339.0, 339.5, 340.0,
                           400.0], device=dev)
@@ -638,7 +642,8 @@ def test_k9_planck_rows_equal_plain_at_c90(dev, dudts):
             inp.ch4, inp.n2o, torch.full_like(z, 0.2095), z, inp.cfc11,
             inp.cfc12, inp.hcfc22, z, tables)
     a = setcoef_lw(*args, dudts=dudts)
-    b = setcoef_lw(*args, dudts=dudts, plain=True)
+    with twins():
+        b = setcoef_lw(*args, dudts=dudts)
     for f in b._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
@@ -663,7 +668,10 @@ def test_refresh_with_k9_bitwise_equal_to_its_twins(case, monkeypatch,
     got = refresh()
     assert LAUNCHES["lw_rows"] == 2
     def twin(fn):
-        return lambda *a, **kw: fn(*a, **{**kw, "plain": True})
+        def run(*a, **kw):
+            with twins():
+                return fn(*a, **kw)
+        return run
     for mod in (lwm, kdist, gp):
         for name in ("band_abs_coeffs_lw", "setcoef_lw"):
             if hasattr(mod, name):
@@ -840,7 +848,8 @@ def rats(dev):
             eager = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
     finally:
         lwm.taumol_lw_fast = taumol_lw_fast
-    plain = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw, plain=True)
+    with twins():
+        plain = rats_refresh(inp, DOY, cfg, 69, 71, lw=lw)
     return inp, lw, kern, plain, launches, k3_calls, eager
 
 

@@ -43,6 +43,7 @@ import torch
 
 from geosradiation_gridcomp_tpu_torch.driver import radiation as rad
 from geosradiation_gridcomp_tpu_torch.kernels.build import CSRC
+from geosradiation_gridcomp_tpu_torch.kernels.twins import twins
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import cldprmc_lw
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw_rows_cuda
@@ -516,8 +517,9 @@ def test_k8_emulated_equals_plain(lib, case, gmr_case, ngpt, inhm):
     alpha, rcorr = mcica.overlap_params(zm, lats, DOY)
     mask, zcw = mcica_gmr_cuda.launch(lib, play, alpha, rcorr, cldf, ngpt,
                                       zcw_cols)
-    mask_p, zcw_p = gp._gen_max_ran_mask(play, zm, lats, DOY, cldf, ngpt,
-                                         zcw_cols, plain=True)
+    with twins():
+        mask_p, zcw_p = gp._gen_max_ran_mask(play, zm, lats, DOY, cldf,
+                                             ngpt, zcw_cols)
     assert mask.shape == zcw.shape == (NCOL, NLEV, ngpt)
     assert torch.equal(mask, mask_p) and torch.equal(zcw, zcw_p)
     assert bool(mask[0, :55].any()) and not bool(mask[0, 55:].any())

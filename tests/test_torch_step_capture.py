@@ -19,7 +19,10 @@ CPU); what is held here is what the capture relies on:
   on host data and reads no tensor back to the host (Tensor.item,
   tolist, numpy, cpu, __bool__, __int__, __float__), outside the kernel
   wrappers, which on the CPU run their plain twins: on a card each of
-  those would synchronise the stream, and none can be captured.
+  those would synchronise the stream, and none can be captured;
+- the switch between a kernel and its twin (kernels/twins.py): use_kernel
+  on a card outside twins() only, twins(False) a no-op even when nested,
+  and a captured entry inside twins() running its body unrouted.
 """
 
 import functools
@@ -35,7 +38,10 @@ from geosradiation_gridcomp_tpu.config import RadiationConfig
 from geosradiation_gridcomp_tpu.driver import step as jstep
 from geosradiation_gridcomp_tpu_torch.config import RadiationConfig as TConfig
 from geosradiation_gridcomp_tpu_torch.driver import step as tstep
-from geosradiation_gridcomp_tpu_torch.driver.compiled import StaticIO
+from geosradiation_gridcomp_tpu_torch.driver.compiled import (StaticIO,
+                                                              clone_tree)
+from geosradiation_gridcomp_tpu_torch.kernels.twins import (twins,
+                                                           use_kernel)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import lw as lwm
 from geosradiation_gridcomp_tpu_torch.models.rrtmg import sw as swm
 from geosradiation_gridcomp_tpu_torch.parallel.sharding import tree_leaves
@@ -116,6 +122,13 @@ def _storages(tree):
     return [t.untyped_storage().data_ptr() for t in tree_leaves(tree)]
 
 
+def _replay(io, traced, replay):
+    """What a captured entry does around its replay: copy traced in,
+    replay, clone the outputs."""
+    io.load(traced)
+    return clone_tree(replay())
+
+
 def test_static_io_copies_in_and_clones_out(scene):
     body, static = tstep.radiation_refresh_eager, _static(scene)
     calls = [dict(inp=scene["inp"], doy=DOY, utc_hours=UTC, sw_aero=None,
@@ -124,7 +137,8 @@ def test_static_io_copies_in_and_clones_out(scene):
                   doy=torch.tensor(200.25), utc_hours=3.5, sw_aero=None,
                   lw_aero=None)]
     io = StaticIO(calls[0], torch.device("cpu"))
-    outs = [io(c, lambda: body(**io.arguments, **static)) for c in calls]
+    outs = [_replay(io, c, lambda: body(**io.arguments, **static))
+            for c in calls]
     eager = [body(**c, **static) for c in calls]
     for got, want in zip(outs, eager):
         for x, y in zip(tree_leaves(got), tree_leaves(want)):
@@ -145,7 +159,7 @@ def test_static_io_copies_in_and_clones_out(scene):
                                   (UTC, torch.tensor(4.0)))]
     io = StaticIO(args[0], torch.device("cpu"))
     for a in args:
-        got = io(a, lambda: upd(**io.arguments, config=T_CFG))
+        got = _replay(io, a, lambda: upd(**io.arguments, config=T_CFG))
         want = upd(**a, config=T_CFG)
         for x, y in zip(tree_leaves(got), tree_leaves(want)):
             assert torch.equal(x, y)
@@ -371,3 +385,63 @@ def test_refresh_route_is_a_static_test(scene, monkeypatch):
     assert on_card(base, card) is base
     assert on_card(base, torch.device("cpu")) is None
     assert on_card(base, None) is None
+
+
+class _OnCard:
+    """A stand-in for a CUDA tensor: use_kernel reads only its device."""
+    device = torch.device("cuda", 0)
+
+
+def test_use_kernel_only_on_a_card_outside_twins():
+    """use_kernel is false for CPU tensors; for a CUDA tensor it is true
+    outside twins() and false inside."""
+    assert not use_kernel(torch.zeros(2))
+    assert use_kernel(_OnCard())
+    with twins():
+        assert not use_kernel(_OnCard())
+        assert not use_kernel(torch.zeros(2))
+    assert use_kernel(_OnCard())
+
+
+def test_twins_nest_and_an_inner_false_changes_nothing():
+    """twins(False) is a no-op: alone it leaves the kernels on, inside
+    twins() it cannot turn the twins off; the depth unwinds on an
+    exception."""
+    with twins(False):
+        assert use_kernel(_OnCard())
+    with twins():
+        with twins(False):
+            assert not use_kernel(_OnCard())
+        with twins():
+            assert not use_kernel(_OnCard())
+        assert not use_kernel(_OnCard())
+    with pytest.raises(RuntimeError):
+        with twins():
+            raise RuntimeError("body failed")
+    assert use_kernel(_OnCard())
+
+
+def test_captured_entry_inside_twins_runs_its_body(monkeypatch):
+    """Inside twins() a captured entry whose route would capture runs its
+    body once, eagerly, without consulting its route: a plain body never
+    records a graph. Outside it, the same call captures."""
+    from geosradiation_gridcomp_tpu_torch.driver.compiled import Captured
+
+    _fake_cuda(monkeypatch)
+    routed, runs = [], []
+
+    def body(x):
+        runs.append(use_kernel(_OnCard()))
+        return x + 1.0
+
+    def route(arguments, device):
+        routed.append(device)
+        return arguments
+    entry = Captured(body, (), route=route)
+    x = torch.arange(3.0)
+    with twins():
+        assert torch.equal(entry(x), x + 1.0)
+    assert routed == [] and runs == [False] and entry.graphs == {}
+    assert torch.equal(entry(x), x + 1.0)
+    assert len(routed) == 1 and len(entry.graphs) == 1
+    assert runs[1:] == [True, True]         # its warm-up and capture
