@@ -120,19 +120,22 @@ nvcc per source side by side, then:
    dropped (drop_graphs), so later captures reuse their pool blocks;
 8. rrtmgp phase: radiation_refresh + radiation_update with the RRTMGP SW
    and LW schemes through the RRTMG-reduced facade at 8192 x 72 through
-   the captured entries: K3, K4 and K5 must launch exactly once each per
-   replay, K8 twice (SW, LW), K9 twice (the gas optics' Planck rows, the
-   band cloud optics' cloud rows) and nothing else (K5 and K8 on all 8192
-   columns: the facade does not pack daylight); the first call's time
-   and the pool's growth; K3 and K5 within relmax 5e-4 of their twins in
-   every band and K4 in every output, and K8's mask and zcw bitwise
-   equal to its twin's for both g-point counts, on the inputs the eager
-   body gives them (recorded there: a replay calls no wrapper), with
-   K8's route, device, plain and bound times; the replays bitwise equal
-   to the eager body at doy 172 and 172.001; every IrradState field and
-   LW export within 5e-5 of plain=True on the card, every SolarState
-   field and SW export within 5e-4 with at most 0.5 % of columns beyond
-   5e-5, the heating rates in the reference's form; SW net / TOA
+   the captured entries: K3, K4, K5 and K10 (the SW solver, both
+   streams) must launch exactly once each per replay, K8 twice (SW, LW),
+   K9 twice (the gas optics' Planck rows, the band cloud optics' cloud
+   rows) and nothing else (K5, K8 and K10 on all 8192 columns: the facade
+   does not pack daylight); the first call's time and the pool's growth;
+   K3 and K5 within relmax 5e-4 of their twins in every band and K4 in
+   every output, K8's mask and zcw bitwise equal to its twin's for both
+   g-point counts, and K10's six profiles within relmax 5e-4 of its
+   twin's with at most 0.5 % of columns beyond 5e-5, on the inputs the
+   eager body gives them (recorded there: a replay calls no wrapper),
+   with K8's and K10's route, device, plain and bound times; the replays
+   bitwise equal to the eager body at doy 172 and 172.001; every
+   IrradState field and LW export within 5e-5 of plain=True on the
+   card, every SolarState field and SW export within 5e-4 with at most
+   0.5 % of columns beyond 5e-5, the heating rates in the reference's
+   form; SW net / TOA
    insolation in [0, 1] and OLR in 150-350 W/m^2; replay and eager body
    under set_sync_debug_mode("error"); the clear-sky difference from the
    RRTMG step (flcn, flc); eager, captured, captured, eager: wall
@@ -1502,15 +1505,16 @@ def chou_phase(torch, dev, profile=False):
 
 def rrtmgp_phase(torch, step, draw, profile=False):
     """The RRTMGP facade at full width through the captured
-    radiation_refresh + radiation_update: K3, K4 and K5 once each per
-    replay and K8 twice, K3-K5 each held to its twin on the inputs the
-    eager body (op_by_op) gives it and K8 bitwise on both of its calls'
-    (mcica_gmr_result; draw: one threefry draw's instructions by class);
+    radiation_refresh + radiation_update: K3, K4, K5 and K10 once each
+    per replay and K8 twice, K3-K5 each held to its twin on the inputs the
+    eager body (op_by_op) gives it, K8 bitwise on both of its calls'
+    (mcica_gmr_result; draw: one threefry draw's instructions by class)
+    and K10 at the SW kernel gates on its call's (rte_sw_result);
     the replays bitwise equal to the eager body at two doy values; the
     refresh against plain=True on the card; physics; replay and eager
     body sync-free; both routes' times, the first call, the pool and the
     peak memory (with profile, where its time goes). Returns the launches
-    of the captured run and K8's result."""
+    of the captured run, K8's result and K10's."""
     from geosradiation_gridcomp_tpu_torch.config import (RadiationConfig,
                                                          Scheme)
     from geosradiation_gridcomp_tpu_torch.driver.astronomy import \
@@ -1549,8 +1553,8 @@ def rrtmgp_phase(torch, step, draw, profile=False):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the rrtmgp path: {launches}")
-    want = dict(dict.fromkeys(("taumol_lw", "taumol_sw", "rtrnmc"), 1),
-                mcica_gmr=2, lw_rows=2)
+    want = dict(dict.fromkeys(("taumol_lw", "taumol_sw", "rtrnmc",
+                               "rte_sw"), 1), mcica_gmr=2, lw_rows=2)
     if launches != want:
         raise AssertionError(f"rrtmgp path launched {launches}, not {want}")
     print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
@@ -1561,7 +1565,8 @@ def rrtmgp_phase(torch, step, draw, profile=False):
     wrapped = {"taumol_lw": (kdist, "taumol_lw_fast"),
                "taumol_sw": (kdist, "taumol_sw_fast"),
                "rtrnmc": (rte, "rtrnmc_fast"),
-               "mcica_gmr": (scheme, "_gen_max_ran_mask")}
+               "mcica_gmr": (scheme, "_gen_max_ran_mask"),
+               "rte_sw": (scheme, "rte_sw_fast")}
     saved = {k: getattr(m, a) for k, (m, a) in wrapped.items()}
     calls, draw_calls = {}, {}
 
@@ -1579,7 +1584,8 @@ def rrtmgp_phase(torch, step, draw, profile=False):
     finally:
         for k, (m, a) in wrapped.items():
             setattr(m, a, saved[k])
-    del saved["mcica_gmr"], calls["mcica_gmr"]
+    del saved["mcica_gmr"], calls["mcica_gmr"], saved["rte_sw"]
+    k10_call = calls.pop("rte_sw")
     gate("rrtmgp replay vs eager body: leaves not bitwise equal",
          unequal_leaves(torch, (sol, irr), eager_states), 0)
     del eager_states
@@ -1612,6 +1618,8 @@ def rrtmgp_phase(torch, step, draw, profile=False):
     del calls, args, kw
     k8 = mcica_gmr_result(torch, draw_calls, draw)
     del draw_calls
+    k10 = rte_sw_result(torch, *k10_call)
+    del k10_call
 
     sol_p, irr_p = refresh(plain=True)
     ref = (sol_p, irr_p, update((sol_p, irr_p)))
@@ -1659,7 +1667,55 @@ def rrtmgp_phase(torch, step, draw, profile=False):
         device_profile(torch, "RRTMGP refresh, eager", eager_refresh, 1,
                        top=12)
     drop_graphs(torch, dev, cfg)
-    return launches, k8
+    return launches, k8, k10
+
+
+def rte_sw_result(torch, args, kw):
+    """K10 on the inputs the RRTMGP refresh's eager body gave rte_sw_fast:
+    both streams' six profiles against its twin (rte_sw all-sky, then
+    rte_sw with zero cloud optics) at the SW kernel gates (relmax 5e-4, at
+    most 0.5 % of columns beyond 5e-5) and equal to itself over two runs;
+    the route's (CUDA events), the kernel's (device) and the twin's times;
+    the bound: roofline/K10.py's count (each input read once, each output
+    written once; per solve K6's 7 special-function and 30 FP32
+    instructions, both streams in every column)."""
+    from geosradiation_gridcomp_tpu_torch.models.rrtmgp.rte_sw_cuda import \
+        rte_sw_fast
+    twin = on_twins(rte_sw_fast)
+    taug = args[0]
+    print(f"K10 (rte_sw) at {tuple(taug.shape)}, aerosol "
+          f"{kw.get('tau_aer') is not None}:")
+
+    def run():
+        return rte_sw_fast(*args, **kw)
+    got, again, want = run(), run(), twin(*args, **kw)
+    r = dict(max_abs_err=0.0, library_ms=None)
+    for sky, a, b, c in zip(("all-sky", "clear"), got, want, again):
+        for k in b:
+            gate(f"K10 {sky} {k} relmax", relmax(a[k], b[k]), 5e-4)
+            gate(f"K10 {sky} {k} flipped columns", flipped_share(a[k], b[k]),
+                 5e-3)
+            gate(f"K10 {sky} {k} run to run: unequal",
+                 float((a[k] != c[k]).sum()), 0)
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs(a[k], b[k]))
+    moved = nbytes(args[:9], list(kw.values()), got)
+    del got, again, want
+    solves = 2 * taug.numel()
+    r["ms"] = time_ms(torch, run, 20)
+    r["device_ms"] = kernel_device_ms(torch, "rte_sw", run)
+    if r["device_ms"] <= 0.0:
+        r["device_ms"] = float("nan")
+        print("  torch.profiler recorded no rte_sw_kernel: device time not "
+              "measured; what it recorded:")
+        device_profile(torch, "K10 call", run, 5, top=8)
+    r["plain_ms"] = time_ms(torch, lambda: twin(*args, **kw), 3)
+    r["bound_ms"], r["bound_by"] = bound(moved, seconds=issue_seconds(
+        dict(mufu=7 * solves, fp32=30 * solves), 1))
+    print(f"  route {r['ms']:.4f} ms, kernel device {r['device_ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.2f} ms), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f} % of the "
+          f"route)")
+    return r
 
 
 def mcica_gmr_result(torch, calls, draw):
@@ -2603,6 +2659,9 @@ SOURCES = {
     "lw_rows": (_CSRC + "lw_rows.cu",
                 _REF + "models/rrtmg/cldprmc_lw.py:54, "
                 "models/rrtmg/setcoef_lw.py:61", "step", "lw_rows_kernel"),
+    # K10 too: RRTMGP's SW solver, both streams
+    "rte_sw": (_CSRC + "rte_sw.cu", _REF + "models/rrtmgp/rte.py:20",
+               "rrtmgp", "rte_sw_kernel"),
 }
 # launches a step refresh makes of each step kernel: one, but K9's two
 # (the cloud rows and the Planck rows of the LW solve)
@@ -2675,7 +2734,7 @@ def main():
         require_launched(paths[path], path)
     paths["rats"] = timed("rats", rats_phase, torch, step, args.profile)
     timed("chou", chou_phase, torch, dev, args.profile)
-    paths["rrtmgp"], results["mcica_gmr"] = timed(
+    paths["rrtmgp"], results["mcica_gmr"], results["rte_sw"] = timed(
         "rrtmgp", rrtmgp_phase, torch, step, draw, args.profile)
     paths["rrtmgp_native"] = timed("rrtmgp_native", rrtmgp_native_phase,
                                    torch, step, args.profile)

@@ -1,6 +1,6 @@
 """The one switch between a kernel and its plain PyTorch twin.
 
-Every kernel (K1-K9, P1-P3) keeps a plain twin that computes the same
+Every kernel (K1-K10, P1-P3) keeps a plain twin that computes the same
 values: it runs for CPU tensors, and on a card it is the reference the
 kernel is held to. Each kernel function asks `use_kernel` of one of its
 tensors and runs its twin when the answer is no; nothing else in the

@@ -5,7 +5,9 @@ Port of geosradiation_gridcomp_tpu/models/rrtmgp/rte.py: rte_sw (two-stream
 over GENERIC per-g-point optical properties. rte_sw is plain PyTorch on
 the PIFM layer R/T and vertical adding of models/rrtmg/spcvmc.py; its
 optics are not spcvmc_sw's (w clipped to 1 - 1e-6, delta scaling with
-f = g^2, no UV/PAR outputs), so kernel K6 does not compute it. rte_lw is
+f = g^2, no UV/PAR outputs), so kernel K6 does not compute it: K10
+(rte_sw_cuda.py) computes the all-sky and the clear-sky call in one
+launch, and rte_sw is its plain twin. rte_lw is
 the variable-diffusivity LW transport of models/rrtmg/rtrnmc.py: kernel
 K4 for CUDA tensors, the plain twin otherwise (kernels.twins).
 """

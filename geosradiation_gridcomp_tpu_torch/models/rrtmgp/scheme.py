@@ -7,12 +7,13 @@ GC's default path) -> generic rte solve.
 Port of geosradiation_gridcomp_tpu/models/rrtmgp/scheme.py. Without a
 coefficient file the RRTMG-reduced facade serves as the k-distribution:
 its gas optics run kernels K3 (LW) and K5 (SW), rte_lw runs K4, the
-McICA draws run K8 (ops/mcica_gmr_cuda.py) and the LW table rows (the
-Planck rows and the cloud rows of the LW band cloud optics) K9, each on
-CUDA tensors (the plain twins otherwise: kernels.twins); the rest
-of the band cloud optics and rte_sw are plain PyTorch. With one, the
-native engine (gas_optics.py, rte_native.py) runs, plain PyTorch but for
-K8's draws and K9's LW cloud rows on CUDA tensors.
+McICA draws run K8 (ops/mcica_gmr_cuda.py), the LW table rows (the
+Planck rows and the cloud rows of the LW band cloud optics) K9 and the
+all-sky and clear-sky rte_sw K10 (rte_sw_cuda.py), each on CUDA tensors
+(the plain twins otherwise: kernels.twins); the rest of the band cloud
+optics is plain PyTorch. With one, the native engine (gas_optics.py,
+rte_native.py) runs, plain PyTorch but for K8's draws and K9's LW cloud
+rows on CUDA tensors.
 
 Cloud optics: the band-resolved properties come from the RRTMG scheme's
 Ebert-Curry/Key/Fu + Hu-Stamnes parameterizations (the RRTMGSW / RRTMGLW
@@ -43,7 +44,8 @@ from ..rrtmg.lw import level_temperatures
 from ..rrtmg.sw import _UVBAND
 from .gas_concs import GasConcs
 from .kdist import KDistLW, KDistLWNative, KDistSW, KDistSWNative
-from .rte import rte_lw, rte_sw
+from .rte import rte_lw
+from .rte_sw_cuda import rte_sw_fast
 from .rte_native import rte_lw_native, rte_sw_native
 from .sampling import draw_samples, sampled_urand_gen_max_ran
 
@@ -239,12 +241,12 @@ def rrtmgp_sw_eager(sw, ple, play, tlay, coszen, albdir_uv, albdif_uv,
 
         alb_dir, alb_dif = _sw_albedos(_UVBAND, albdir_uv, albdif_uv,
                                        albdir_nir, albdif_nir)
-        aero = dict(tau_aer=taua, ssa_aer=ssaa, g_aer=asya)
-        allsky = rte_sw(taug, taur, tau_cld, props["ssa"], props["g"],
-                        toa_src, coszen, alb_dir, alb_dif, lims, **aero)
-        zero = torch.zeros_like(tau_cld)
-        clrsky = rte_sw(taug, taur, zero, zero, zero, toa_src, coszen,
-                        alb_dir, alb_dif, lims, **aero)
+        aero = {k: None if x is None else x.contiguous() for k, x in
+                (("tau_aer", taua), ("ssa_aer", ssaa), ("g_aer", asya))}
+        allsky, clrsky = rte_sw_fast(taug, taur, tau_cld, props["ssa"],
+                                     props["g"], toa_src.contiguous(),
+                                     coszen.contiguous(), alb_dir, alb_dif,
+                                     lims, **aero)
         day = (coszen > 0.0).to(taug.dtype)[:, None]
         return dict(bbfu=allsky["flux_up"] * day, bbfd=allsky["flux_dn"] * day,
                     bbfddir=allsky["flux_dir"] * day,

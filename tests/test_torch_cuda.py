@@ -25,8 +25,14 @@ band on each gas's inputs; the Chou-Suarez
 refresh + update on the card against the same functions on the CPU
 <= 5e-5 (no kernel launched); a checkpoint loaded onto the card, and a
 run restarted from it bitwise equal to the uninterrupted run. RRTMGP: the
-facade refresh launches K3, K4 and K5 once each, K8 twice (SW, LW) and
-nothing else, its states against plain=True at the step's gates; the
+facade refresh launches K3, K4, K5 and K10 once each, K8 twice (SW, LW),
+K9 twice and nothing else, its states against plain=True at the step's
+gates; K10 (both streams of rte_sw) at 8,192 x 72, with and without
+aerosol, within the SW kernel gates of its twin (relmax 5e-4, at most
+0.5 % of columns beyond 5e-5), sync-free, equal to itself over two runs;
+rrtmgp_sw launches it once per captured call, its replays bitwise equal
+to the eager body, and plain=True runs the twin, bit for bit the two
+rte_sw calls; the
 native engine on the card launches K8 twice and nothing else and is
 within 5e-5 of the CPU. K8 at 8,100 x 72 bitwise equal to its plain twin
 for 112 and 140 g-points, with and without the condensate PDF, sync-free;
@@ -109,6 +115,7 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import (
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw_cuda import \
     taumol_sw_fast
 from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme as gp
+from geosradiation_gridcomp_tpu_torch.models.rrtmgp.rte import rte_sw
 from geosradiation_gridcomp_tpu_torch.ops import mcica, threefry
 from geosradiation_gridcomp_tpu_torch.ops.ffill_cuda import ffill, ffill_plain
 from geosradiation_gridcomp_tpu_torch.ops.gather_cuda import (
@@ -481,17 +488,17 @@ def test_step_runs_the_kernels(case):
 
 
 def test_rrtmgp_refresh_runs_k3_k4_k5(case):
-    """The RRTMGP facade: K3, K4 and K5 once each per refresh, K8 twice
-    (SW, LW) and K9 twice (the Planck rows of its gas optics, the cloud
-    rows of its band cloud optics), no other kernel; the states against
-    plain=True at the step's gates."""
+    """The RRTMGP facade: K3, K4, K5 and K10 once each per refresh, K8
+    twice (SW, LW) and K9 twice (the Planck rows of its gas optics, the
+    cloud rows of its band cloud optics), no other kernel; the states
+    against plain=True at the step's gates."""
     cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP, lw_scheme=Scheme.RRTMGP)
     kw = dict(config=cfg, ict=69, icb=71, sw=case["sw"], lw=case["lw"])
     LAUNCHES.clear()
     sol, irr = step.radiation_refresh(case["inp"], DOY, 12.0, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"taumol_lw": 1, "rtrnmc": 1, "taumol_sw": 1,
-                              "mcica_gmr": 2, "lw_rows": 2}
+                              "mcica_gmr": 2, "lw_rows": 2, "rte_sw": 1}
     sol_p, irr_p = step.radiation_refresh(case["inp"], DOY, 12.0,
                                           plain=True, **kw)
     for f in irr._fields:
@@ -543,6 +550,95 @@ def test_rrtmgp_entry_launches_k8_once_a_call(dev, name):
     assert LAUNCHES["mcica_gmr"] == 1
     for k in want:
         assert torch.equal(got[-1][k], want[k]), (name, k)
+
+
+def _k10_inputs(dev, ncol, aerosol):
+    """rte_sw_fast's arguments as rrtmgp_sw_eager gives them at ncol x 72
+    (scene seed 5, the refresh's cos zenith: night columns included),
+    recorded on the eager body; with aerosol, optics drawn uniformly
+    (tau 0-0.2, ssa 0.8-1, g 0.5-0.8) for every band."""
+    _, body, a, kw, _ = _scheme_calls(dev, 5, (None, None), ncol=ncol)[
+        "rrtmgp_sw"]
+    seen = []
+    saved = gp.rte_sw_fast
+    gp.rte_sw_fast = lambda *x, **k: seen.append(x) or saved(*x, **k)
+    try:
+        with twins():
+            body(*a, DOY, **kw)
+    finally:
+        gp.rte_sw_fast = saved
+    (args,) = seen
+    assert float(args[6].min()) <= 0.0 < float(args[6].max())
+    if not aerosol:
+        return args, {}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        (ncol, NLEV, 14), generator=gen, device=dev)
+    return args, dict(tau_aer=u(0.0, 0.2), ssa_aer=u(0.8, 1.0),
+                      g_aer=u(0.5, 0.8))
+
+
+@pytest.mark.parametrize("aerosol", [False, True])
+def test_k10_matches_plain_at_8192(dev, aerosol):
+    """K10 at 8,192 x 72 against its twin (rte_sw all-sky, then rte_sw
+    with zero cloud optics) within the SW kernel gates: relmax <= 5e-4
+    and at most 0.5 % of columns beyond 5e-5, every profile; one launch
+    a call, the kernel's route under set_sync_debug_mode("error"), equal
+    to itself over two runs."""
+    args, aero = _k10_inputs(dev, 8192, aerosol)
+    LAUNCHES.clear()
+    got, again = _sync_free(lambda: gp.rte_sw_fast(*args, **aero),
+                            lambda: gp.rte_sw_fast(*args, **aero))
+    assert dict(LAUNCHES) == {"rte_sw": 2}
+    with twins():
+        want = gp.rte_sw_fast(*args, **aero)
+    assert dict(LAUNCHES) == {"rte_sw": 2}
+    for sky, a, b, c in zip(("allsky", "clrsky"), got, want, again):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert torch.equal(a[k], c[k]), (sky, k)
+            assert relmax(a[k], b[k]) <= 5e-4, (sky, k)
+            err = (a[k].double() - b[k].double()).abs().max(dim=1).values
+            share = float((err > 5e-5 * float(b[k].abs().max()))
+                          .double().mean())
+            assert share <= 5e-3, (sky, k, share)
+
+
+def test_rrtmgp_sw_launches_k10_once_a_call(dev):
+    """Each captured rrtmgp_sw call, replayed, adds exactly one K10
+    launch, and its replays are bitwise equal to the eager body, under
+    set_sync_debug_mode("error"); plain=True launches none and runs the
+    twin, bit for bit the two rte_sw calls the body made before K10. 57
+    columns: a key no other test captures."""
+    entry, body, a, kw, _ = _scheme_calls(dev, 0, (None, None), ncol=57)[
+        "rrtmgp_sw"]
+    a = (*a, DOY)
+    entry(*a, **kw)                                 # warm-up + capture
+    for calls in (1, 2):
+        LAUNCHES.clear()
+        got = _sync_free(*[lambda: entry(*a, **kw)] * calls)
+        assert LAUNCHES["rte_sw"] == calls
+    LAUNCHES.clear()
+    (want,) = _sync_free(lambda: body(*a, **kw))
+    assert LAUNCHES["rte_sw"] == 1
+    for k in want:
+        assert torch.equal(got[-1][k], want[k]), k
+
+    def two_calls(taug, taur, tau_cld, ssa, g, *rest, **aero):
+        zero = torch.zeros_like(tau_cld)
+        return (rte_sw(taug, taur, tau_cld, ssa, g, *rest, **aero),
+                rte_sw(taug, taur, zero, zero, zero, *rest, **aero))
+    LAUNCHES.clear()
+    plain = entry(*a, plain=True, **kw)
+    assert "rte_sw" not in LAUNCHES
+    saved = gp.rte_sw_fast
+    gp.rte_sw_fast = two_calls
+    try:
+        before = body(*a, plain=True, **kw)
+    finally:
+        gp.rte_sw_fast = saved
+    for k in before:
+        assert torch.equal(plain[k], before[k]), k
 
 
 def test_rrtmgp_native_on_the_card_matches_the_cpu(dev, tmp_path):

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K9 and P1-P3 run on the CPU against their plain
+"""The CUDA sources of K1-K10 and P1-P3 run on the CPU against their plain
 PyTorch twins.
 
 g++ compiles geosradiation_gridcomp_tpu_torch/csrc/*.cu against a host
@@ -27,7 +27,12 @@ mask and zcw exact, and the state key of its prologue
 bit. K9's liquid and Planck rows exact against the twin's, and its ice rows
 exact against the twin's formed with the card's rounding of the factor
 (PyTorch multiplies a CUDA tensor by the reciprocal of 3 where it divides
-a CPU one).
+a CPU one). K10 (both streams of RRTMGP's rte_sw) within the SW kernel
+gates of its twin, relmax <= 5e-4 and no column beyond 5e-5, the latter
+against the twin with its exp rounded from float64 as libm's expf rounds
+(torch's CPU exp is Sleef's, within 1 ulp, and an ulp of exp moves the
+clear sky's upward flux by up to 7e-5 where w sits at its clip); its
+wrapper's refusals.
 """
 
 import ctypes
@@ -60,11 +65,14 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_lw import (
     planck_rows_plain, setcoef_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.setcoef_sw import \
     setcoef_sw
-from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import spcvmc_sw
+from geosradiation_gridcomp_tpu_torch.models.rrtmg.spcvmc import (
+    _WCRIT_RESID, spcvmc_sw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_lw import (
     PARTS, VARIANTS, _cells, taumol_lw)
 from geosradiation_gridcomp_tpu_torch.models.rrtmg.taumol_sw import taumol_sw
+from geosradiation_gridcomp_tpu_torch.models.rrtmgp import rte_sw_cuda
 from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme as gp
+from geosradiation_gridcomp_tpu_torch.models.rrtmgp.rte import rte_sw as rte
 from geosradiation_gridcomp_tpu_torch.ops import (ffill_cuda, gather_cuda,
                                                   mcica, mcica_cuda,
                                                   mcica_gmr_cuda)
@@ -631,6 +639,131 @@ def test_k9_planck_emulated_equals_plain(lib, case, shape, dudts):
                           got, want):
         assert a.shape == b.shape and torch.equal(a, b), name
     assert bool(got[1].any()) == dudts
+
+
+def _k10_inputs(case, sw_case, aerosol):
+    """rte_sw_fast's arguments as the RRTMGP facade's SW gives them on the
+    scene (recorded from rrtmgp_sw_eager), with crafted cells: column 0's
+    top ten layers pure Rayleigh (no gas, no cloud: w at its clip, g 0),
+    column 1's layers 20-29 a scattering cloud over no gas (w at its clip,
+    g_eff ~0.46: the conservative branch) and its layers 30-31 the same at
+    tau 1e-9 (the conservative branch's dbt == 1), column 2 at night (mu0
+    floored to 1e-6), column 3 with no cloud and its top five layers
+    empty (tau 0, dbt == 1). With aerosol, uniform optics of every band
+    and, in column 1's layers 20-29, a scattering aerosol of g 0.8."""
+    inp, sw = case["inp"], sw_case["sw"]
+    play, h2o, o3 = rad._common_derived(inp)
+    zm = lwm.mid_heights(play, inp.t, inp.ple[..., -1])
+    ciwp, clwp = rad._incloud_paths(inp)
+    seen = []
+    saved = gp.rte_sw_fast
+    gp.rte_sw_fast = lambda *a, **k: seen.append(a) or saved(*a, **k)
+    try:
+        gp.rrtmgp_sw_eager(
+            sw, inp.ple, play, inp.t, torch.tensor([0.7, 0.3, -0.2, 0.95]),
+            inp.albvr, inp.albvf, inp.albnr, inp.albnf, h2o, o3, inp.co2,
+            inp.ch4, torch.full_like(inp.co2, 0.2095), inp.fcld, ciwp, clwp,
+            inp.ri, inp.rl, zm, inp.lats, DOY)
+    finally:
+        gp.rte_sw_fast = saved
+    (args,) = seen
+    taug, taur, tau, ssa, g = (x.clone() for x in args[:5])
+    taug[0, :10] = tau[0, :10] = ssa[0, :10] = g[0, :10] = 0.0
+    taug[1, 20:32] = 0.0
+    tau[1, 20:30], tau[1, 30:32], taur[1, 30:32] = 5.0, 1e-9, 0.0
+    ssa[1, 20:32], g[1, 20:32] = 1.0, 0.85
+    taug[3, :5] = taur[3, :5] = 0.0
+    assert not bool(tau[3].any()) and bool(tau[0].any())
+    aero = {}
+    if aerosol:
+        rng = np.random.default_rng(10)
+        f = lambda lo, hi: torch.as_tensor(
+            rng.uniform(lo, hi, (NCOL, NLEV, 14)).astype(np.float32))
+        aero = dict(tau_aer=f(0.0, 0.1), ssa_aer=f(0.8, 1.0),
+                    g_aer=f(0.5, 0.8))
+        aero["tau_aer"][1, 20:30] = 2.0
+        aero["ssa_aer"][1, 20:30], aero["g_aer"][1, 20:30] = 1.0, 0.8
+    return (taug, taur, tau, ssa, g, *args[5:]), aero
+
+
+def _k10_conservative(args):
+    """rte_sw's all-sky w and g_eff without aerosol, and reftra_sw's
+    conservative-branch predicate on them."""
+    taug, taur, tau_cld, ssa_cld, g_cld = args[:5]
+    f = g_cld * g_cld
+    tau_c = (1.0 - ssa_cld * f) * tau_cld
+    has = tau_cld > 0.0
+    ssa_c = torch.where(has, (1.0 - f) * ssa_cld / (1.0 - ssa_cld * f), 0.0)
+    g_c = torch.where(has, (g_cld - f) / (1.0 - f), 0.0)
+    tau = taug + taur + tau_c
+    scat = taur + ssa_c * tau_c
+    w = torch.clamp(scat / torch.clamp(tau, min=1e-12), 0.0, 1.0 - 1e-6)
+    g = g_c * ssa_c * tau_c / torch.clamp(scat, min=1e-12)
+    womz, q = 1.0 - w, (g / (1.0 - g)) ** 2
+    return tau, womz * (1.0 - q) / (1.0 - womz * q) <= _WCRIT_RESID
+
+
+@pytest.mark.parametrize("aerosol", [False, True])
+def test_k10_emulated_matches_plain(lib, case, sw_case, aerosol,
+                                    monkeypatch):
+    """K10 against its twin (rte_sw all-sky, then rte_sw with zero cloud
+    optics) within the SW kernel gates on the crafted cells of
+    _k10_inputs: relmax <= 5e-4, and no column beyond 5e-5 (at most 0.5 %
+    of columns: none of four) against the twin with its exp rounded from
+    float64, as libm's expf rounds it here and as the card's one expf
+    serves both (torch's exp on the CPU is Sleef's, 1 ulp, and an ulp of
+    exp moves the clear sky's flux_up by up to 7e-5 where w sits at its
+    clip); equal to itself over two runs. The twin's night column, and
+    its all-sky equal to its clear sky in the cloudless one."""
+    args, aero = _k10_inputs(case, sw_case, aerosol)
+    tau, cons = _k10_conservative(args)
+    assert bool(cons[1, 20:32].all()) and not bool(cons[0, :10].any())
+    assert bool((tau[1, 30:32] / 0.3 < 1e-8).all())
+    got = rte_sw_cuda.launch(lib, *args, **aero)
+    again = rte_sw_cuda.launch(lib, *args, **aero)
+    want = rte_sw_cuda.rte_sw_fast(*args, **aero)
+    exp = torch.exp
+    monkeypatch.setattr(torch, "exp", lambda x: exp(x.double()).float())
+    rounded = rte_sw_cuda.rte_sw_fast(*args, **aero)
+    for sky, a, b, c, r in zip(("allsky", "clrsky"), got, want, again,
+                               rounded):
+        for k in rte_sw_cuda.KEYS:
+            assert a[k].shape == (NCOL, NLEV + 1)
+            assert torch.equal(a[k], c[k]), (sky, k)
+            assert relmax(a[k], b[k]) <= 5e-4, (sky, k)
+            err = (a[k].double() - r[k].double()).abs().max(dim=1).values
+            assert float(err.max()) <= 5e-5 * float(r[k].abs().max()), (
+                sky, k)
+    for k in rte_sw_cuda.KEYS:
+        assert torch.equal(want[0][k][3], want[1][k][3])
+        assert not torch.equal(want[0][k][1], want[1][k][1])
+    assert float(want[0]["flux_dn"][2, 0]) < 1e-3 * float(
+        want[0]["flux_dn"][0, 0])
+
+
+def test_k10_wrapper_refuses_what_the_kernel_does_not_take(case, sw_case):
+    """rte_sw_kernel raises, and launches nothing, on a float64 input, a
+    non-contiguous one, aerosol without tau_aer, a toa_src of another
+    shape and CPU tensors; rte_sw_fast on CPU tensors runs the twin."""
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    args, aero = _k10_inputs(case, sw_case, True)
+    kernel = rte_sw_cuda.rte_sw_kernel
+    strided = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    before = dict(LAUNCHES)
+    for err, match, a, kw in (
+            (TypeError, "float32", (args[0].double(), *args[1:]), aero),
+            (ValueError, "contiguous", (*args[:2], strided, *args[3:]), aero),
+            (ValueError, "aerosol", args, dict(ssa_aer=aero["ssa_aer"])),
+            (ValueError, "toa_src", (*args[:5], args[5][:, :100].contiguous(),
+                                     *args[6:]), {}),
+            (ValueError, "CUDA", args, aero)):
+        with pytest.raises(err, match=match):
+            kernel(*a, **kw)
+    assert dict(LAUNCHES) == before
+    allsky, clrsky = rte_sw_cuda.rte_sw_fast(*args, **aero)
+    want = rte(*args, **aero)
+    assert torch.equal(allsky["flux_up"], want["flux_up"])
+    assert dict(LAUNCHES) == before
 
 
 def test_p1_emulated_equals_plain(lib):
