@@ -21,6 +21,14 @@ a card. The body reads no device value and copies nothing from host
 memory: the simulators' tables and bin edges go to the device once
 (tables.on_device), and the radar's classes are a static tuple.
 
+Only while a torch.profiler records, the body opens a range over each
+stage: "cosp/scops" (in-cloud condensate, optical depths, SCOPS,
+prec_scops and the subcolumn hydrometeors), "cosp/isccp", "cosp/misr",
+"cosp/modis", "cosp/lidar", "cosp/radar" (QuickBeam) and "cosp/stats"
+(the stat-grid regridding, lidar and radar statistics; more than one
+range a call). They show in an eager or op-by-op profile; a replay of
+the captured graph runs no Python and shows none of them.
+
 Hydrometeor class order (cosp_constants.F90:116): LSL, LSI, LSR, LSS,
 CVL, CVI, CVR, CVS, LSG. GEOS feeds zero convective species
 (GEOS_SatsimGridComp.F90:3689-3692), so the radar integrates the five
@@ -34,7 +42,8 @@ from typing import NamedTuple
 import torch
 
 from ..constants import GRAV
-from ..driver.compiled import captured, on_card
+from ..driver.compiled import _profiling, captured, on_card
+from ..driver.diagnostics import _range
 from ..tables import load
 from .icarus import isccp_simulator
 from .lidar import lidar_simulator, lidar_stats
@@ -165,92 +174,102 @@ def cosp_simulator_eager(key, inp: SatsimInputs,
     """
     cfg = config or SatsimConfig()
     ncol = cfg.ncolumns
+    profiling = _profiling()
     dev, fdt = inp.t.device, inp.t.dtype
     zero = torch.zeros((), dtype=fdt, device=dev)
     play = 0.5 * (inp.ple[:, 1:] + inp.ple[:, :-1])
     dp = inp.ple[:, 1:] - inp.ple[:, :-1]
     zlo = 0.5 * (inp.zle[:, 1:] + inp.zle[:, :-1])
 
-    # in-cloud condensate (SIM_DRIVER :3377-3390) and radii in um
-    icq = torch.where(inp.fcld > 0.01,
-                      1.0 / torch.clamp(inp.fcld, min=1e-6), zero)
-    has = icq > 0
-    cwc = torch.stack([torch.clamp(q * icq, min=1e-12) * has
-                       for q in (inp.qi, inp.ql, inp.qr, inp.qs)], dim=-1)
-    reff_um = torch.stack([inp.ri, inp.rl, inp.rr, inp.rs], dim=-1) * 1e6
+    with _range("cosp/scops", profiling):
+        # in-cloud condensate (SIM_DRIVER :3377-3390) and radii in um
+        icq = torch.where(inp.fcld > 0.01,
+                          1.0 / torch.clamp(inp.fcld, min=1e-6), zero)
+        has = icq > 0
+        cwc = torch.stack([torch.clamp(q * icq, min=1e-12) * has
+                           for q in (inp.qi, inp.ql, inp.qr, inp.qs)],
+                          dim=-1)
+        reff_um = torch.stack([inp.ri, inp.rl, inp.rr, inp.rs],
+                              dim=-1) * 1e6
 
-    # 0.67um optical depth and 10.5um emissivity (ice+liquid only,
-    # SIM_DRIVER :3437-3452)
-    v1, v2, _, _ = _chou_vis_tau(dp, cwc, reff_um)
-    dtau_s = v1 + v2
-    i1, i2, _, _ = _chou_ir_tau_band4(dp, cwc, reff_um)
-    dem_s = -torch.expm1(-(i1 + i2))
-    zeros = torch.zeros_like(dtau_s)
+        # 0.67um optical depth and 10.5um emissivity (ice+liquid only,
+        # SIM_DRIVER :3437-3452)
+        v1, v2, _, _ = _chou_vis_tau(dp, cwc, reff_um)
+        dtau_s = v1 + v2
+        i1, i2, _, _ = _chou_ir_tau_band4(dp, cwc, reff_um)
+        dem_s = -torch.expm1(-(i1 + i2))
+        zeros = torch.zeros_like(dtau_s)
 
-    # subcolumn sampling; GEOS has no separate convective cloud
-    frac_out = scops(key, inp.fcld, zeros, ncol, overlap=cfg.overlap)
-    ls_cld = frac_out == 1
+        # subcolumn sampling; GEOS has no separate convective cloud
+        frac_out = scops(key, inp.fcld, zeros, ncol, overlap=cfg.overlap)
+        ls_cld = frac_out == 1
 
-    # precip occurrence from total LS/CV precip mixing ratios
-    # (cosp.F90:404-411; mixing-ratio mode, use_precipitation_fluxes=F)
-    pf = prec_scops(inp.qr + inp.qs + inp.qg, torch.zeros_like(inp.qr),
-                    frac_out)
-    ls_prec = (pf == 1) | (pf == 3)
+        # precip occurrence from total LS/CV precip mixing ratios
+        # (cosp.F90:404-411; mixing-ratio mode, use_precipitation_fluxes=F)
+        pf = prec_scops(inp.qr + inp.qs + inp.qg, torch.zeros_like(inp.qr),
+                        frac_out)
+        ls_prec = (pf == 1) | (pf == 3)
 
-    frac_ls = ls_cld.to(fdt).mean(dim=1)     # sampled LS cloud fraction
-    prec_ls = ls_prec.to(fdt).mean(dim=1)
+        frac_ls = ls_cld.to(fdt).mean(dim=1)  # sampled LS cloud fraction
+        prec_ls = ls_prec.to(fdt).mean(dim=1)
 
-    # subcolumn hydrometeor mixing ratios [kg/kg] (cosp.F90:451-520)
-    mr = {
-        I_LSCLIQ: _distribute(inp.ql, ls_cld, frac_ls),
-        I_LSCICE: _distribute(inp.qi, ls_cld, frac_ls),
-        I_LSRAIN: _distribute(inp.qr, ls_prec, prec_ls),
-        I_LSSNOW: _distribute(inp.qs, ls_prec, prec_ls),
-        I_LSGRPL: _distribute(inp.qg, ls_prec, prec_ls),
-    }
+        # subcolumn hydrometeor mixing ratios [kg/kg] (cosp.F90:451-520)
+        mr = {
+            I_LSCLIQ: _distribute(inp.ql, ls_cld, frac_ls),
+            I_LSCICE: _distribute(inp.qi, ls_cld, frac_ls),
+            I_LSRAIN: _distribute(inp.qr, ls_prec, prec_ls),
+            I_LSSNOW: _distribute(inp.qs, ls_prec, prec_ls),
+            I_LSGRPL: _distribute(inp.qg, ls_prec, prec_ls),
+        }
 
-    def sub(mask, r):
-        """um, a gridbox radius in the cloudy/precip subcolumns"""
-        return torch.where(mask, (r * 1e6)[:, None, :], zero)
-    re_cld = {I_LSCLIQ: sub(ls_cld, inp.rl), I_LSCICE: sub(ls_cld, inp.ri),
-              I_LSRAIN: sub(ls_prec, inp.rr), I_LSSNOW: sub(ls_prec, inp.rs),
-              I_LSGRPL: sub(ls_prec, inp.rg)}
+        def sub(mask, r):
+            """um, a gridbox radius in the cloudy/precip subcolumns"""
+            return torch.where(mask, (r * 1e6)[:, None, :], zero)
+        re_cld = {I_LSCLIQ: sub(ls_cld, inp.rl),
+                  I_LSCICE: sub(ls_cld, inp.ri),
+                  I_LSRAIN: sub(ls_prec, inp.rr),
+                  I_LSSNOW: sub(ls_prec, inp.rs),
+                  I_LSGRPL: sub(ls_prec, inp.rg)}
 
     out = {"frac_out": frac_out}
     sunlit = (inp.mcosz > 0.0).to(torch.int32)
 
     isccp = None
     if cfg.run_isccp or cfg.run_modis:
-        isccp = isccp_simulator(
-            frac_out, play, inp.ple, inp.qv, inp.t, inp.ts,
-            ISCCP_EMSFC_LW, dtau_s, zeros, dem_s, zeros, sunlit,
-            top_height=cfg.isccp_top_height,
-            top_height_direction=cfg.isccp_top_height_direction)
+        with _range("cosp/isccp", profiling):
+            isccp = isccp_simulator(
+                frac_out, play, inp.ple, inp.qv, inp.t, inp.ts,
+                ISCCP_EMSFC_LW, dtau_s, zeros, dem_s, zeros, sunlit,
+                top_height=cfg.isccp_top_height,
+                top_height_direction=cfg.isccp_top_height_direction)
         if cfg.run_isccp:
             out["isccp"] = isccp
 
     if cfg.run_misr:
-        out["misr"] = misr_simulator(frac_out, zlo, inp.t, dtau_s,
-                                     zeros, sunlit)
+        with _range("cosp/misr", profiling):
+            out["misr"] = misr_simulator(frac_out, zlo, inp.t, dtau_s,
+                                         zeros, sunlit)
 
     if cfg.run_modis:
-        # per-subcolumn liquid/ice tau: dtau_s partitioned by the
-        # geometric-optics LWC/re ratio (modis_L2_simulator_oneTau)
-        rl_um = (inp.rl * 1e6)[:, None, :]
-        ri_um = (inp.ri * 1e6)[:, None, :]
-        lw = mr[I_LSCLIQ] / torch.clamp(rl_um, min=1e-6)
-        iw = mr[I_LSCICE] / (0.93 * torch.clamp(ri_um, min=1e-6))
-        liq_frac = torch.where(lw + iw > 0.0,
-                               lw / torch.clamp(lw + iw, min=1e-30), zero)
-        tau_sub = torch.where(ls_cld, dtau_s[:, None, :], zero)
-        l2 = modis_l2_simulator(
-            inp.t, play, inp.ple,
-            tau_sub * liq_frac, tau_sub * (1.0 - liq_frac),
-            rl_um.expand(tau_sub.shape), ri_um.expand(tau_sub.shape),
-            isccp["boxtau"], isccp["boxptop"])
-        l3 = modis_l3_simulator(l2["phase"], l2["ctp"], l2["tau"],
-                                l2["size"])
-        out["modis"] = {"l2": l2, **l3}
+        with _range("cosp/modis", profiling):
+            # per-subcolumn liquid/ice tau: dtau_s partitioned by the
+            # geometric-optics LWC/re ratio (modis_L2_simulator_oneTau)
+            rl_um = (inp.rl * 1e6)[:, None, :]
+            ri_um = (inp.ri * 1e6)[:, None, :]
+            lw = mr[I_LSCLIQ] / torch.clamp(rl_um, min=1e-6)
+            iw = mr[I_LSCICE] / (0.93 * torch.clamp(ri_um, min=1e-6))
+            liq_frac = torch.where(lw + iw > 0.0,
+                                   lw / torch.clamp(lw + iw, min=1e-30),
+                                   zero)
+            tau_sub = torch.where(ls_cld, dtau_s[:, None, :], zero)
+            l2 = modis_l2_simulator(
+                inp.t, play, inp.ple,
+                tau_sub * liq_frac, tau_sub * (1.0 - liq_frac),
+                rl_um.expand(tau_sub.shape), ri_um.expand(tau_sub.shape),
+                isccp["boxtau"], isccp["boxptop"])
+            l3 = modis_l3_simulator(l2["phase"], l2["ctp"], l2["tau"],
+                                    l2["size"])
+            out["modis"] = {"l2": l2, **l3}
 
     if cfg.use_vgrid:
         zl_s, zu_s = csat_vgrid_bounds(cfg.nlr, cfg.csat_vgrid)
@@ -261,59 +280,67 @@ def cosp_simulator_eager(key, inp: SatsimInputs,
 
     sr = None
     if cfg.run_lidar:
-        lid = lidar_simulator(
-            play, inp.ple, inp.t,
-            mr[I_LSCLIQ], mr[I_LSCICE],
-            torch.zeros_like(mr[I_LSCLIQ]), torch.zeros_like(mr[I_LSCLIQ]),
-            inp.rl, inp.ri, inp.rl, inp.ri,
-            ice_type=cfg.lidar_ice_type)
-        if cfg.use_vgrid:
-            # statistics on the stat grid (COSP_STATS: regrid beta_tot,
-            # betamol and pressure, then run the LMD/IPSL diagnostics)
-            pnorm_s = regrid(lid["pnorm"])
-            pmol_s = regrid(lid["pmol"][:, None, :])[:, 0]
-            pplay_s = regrid(play[:, None, :])[:, 0]
-            st = lidar_stats(pnorm_s, pmol_s, lid["refl"],
-                             inp.frland, pplay_s)
-            # undefined bins (below the model surface / no molecular
-            # signal): the reference's sc_ratio = R_UNDEF/R_UNDEF = 1.0
-            # is neither cloud (>5) nor attenuated (<=0.01), so such
-            # bins are effectively ignored (llnl_stats.F90:62-70);
-            # mirror that with an explicit 1.0 sentinel
-            sr = torch.where(pmol_s[:, None, :] > 0.0,
-                             pnorm_s / torch.clamp(pmol_s[:, None, :],
-                                                   min=1e-38), 1.0 + zero)
-        else:
-            st = lidar_stats(lid["pnorm"], lid["pmol"], lid["refl"],
-                             inp.frland, play)
-            sr = lid["pnorm"] / torch.clamp(lid["pmol"][:, None, :],
-                                            min=1e-38)
-        out["lidar"] = {**lid, **st}
+        with _range("cosp/lidar", profiling):
+            lid = lidar_simulator(
+                play, inp.ple, inp.t,
+                mr[I_LSCLIQ], mr[I_LSCICE],
+                torch.zeros_like(mr[I_LSCLIQ]),
+                torch.zeros_like(mr[I_LSCLIQ]),
+                inp.rl, inp.ri, inp.rl, inp.ri,
+                ice_type=cfg.lidar_ice_type)
+        with _range("cosp/stats", profiling):
+            if cfg.use_vgrid:
+                # statistics on the stat grid (COSP_STATS: regrid
+                # beta_tot, betamol and pressure, then run the LMD/IPSL
+                # diagnostics)
+                pnorm_s = regrid(lid["pnorm"])
+                pmol_s = regrid(lid["pmol"][:, None, :])[:, 0]
+                pplay_s = regrid(play[:, None, :])[:, 0]
+                st = lidar_stats(pnorm_s, pmol_s, lid["refl"],
+                                 inp.frland, pplay_s)
+                # undefined bins (below the model surface / no molecular
+                # signal): the reference's sc_ratio = R_UNDEF/R_UNDEF =
+                # 1.0 is neither cloud (>5) nor attenuated (<=0.01), so
+                # such bins are effectively ignored (llnl_stats.F90:62-70);
+                # mirror that with an explicit 1.0 sentinel
+                sr = torch.where(pmol_s[:, None, :] > 0.0,
+                                 pnorm_s / torch.clamp(pmol_s[:, None, :],
+                                                       min=1e-38),
+                                 1.0 + zero)
+            else:
+                st = lidar_stats(lid["pnorm"], lid["pmol"], lid["refl"],
+                                 inp.frland, play)
+                sr = lid["pnorm"] / torch.clamp(lid["pmol"][:, None, :],
+                                                min=1e-38)
+            out["lidar"] = {**lid, **st}
 
     if cfg.run_radar:
-        rh = torch.clamp(inp.qv / torch.clamp(_qsat(inp.t, play), min=1e-12),
-                         0.0, 1.0) * 100.0
-        hm = torch.stack([mr[i] for i in PRESENT]) * 1e3
-        re = torch.stack([re_cld[i] for i in PRESENT])
-        rad = quickbeam_simulator(inp.zle[:, :-1] / 1000.0, play / 100.0,
-                                  inp.t - 273.15, rh, hm, re,
-                                  classes=PRESENT)
-        del hm, re
-        dbze = regrid(rad["dbze"], log=True) if cfg.use_vgrid \
-            else rad["dbze"]
-        out["radar"] = {**rad, "cfad_dbze": radar_cfad(dbze)}
-        if sr is not None:
-            if cfg.use_vgrid:
-                # stat-grid profiles are ground-ascending; the
-                # first-attenuation scan walks top->surface
-                # (llnl_stats.F90:109), so flip, scan, flip back
-                freq, tcc = lidar_only_freq_cloud(sr.flip(-1),
-                                                  dbze.flip(-1))
-                freq = freq.flip(-1)
-            else:
-                freq, tcc = lidar_only_freq_cloud(sr, dbze)
-            out["radar"]["lidar_only_freq_cloud"] = freq
-            out["radar"]["radar_lidar_tcc"] = tcc
+        with _range("cosp/radar", profiling):
+            rh = torch.clamp(inp.qv / torch.clamp(_qsat(inp.t, play),
+                                                  min=1e-12),
+                             0.0, 1.0) * 100.0
+            hm = torch.stack([mr[i] for i in PRESENT]) * 1e3
+            re = torch.stack([re_cld[i] for i in PRESENT])
+            rad = quickbeam_simulator(inp.zle[:, :-1] / 1000.0,
+                                      play / 100.0, inp.t - 273.15, rh, hm,
+                                      re, classes=PRESENT)
+            del hm, re
+        with _range("cosp/stats", profiling):
+            dbze = regrid(rad["dbze"], log=True) if cfg.use_vgrid \
+                else rad["dbze"]
+            out["radar"] = {**rad, "cfad_dbze": radar_cfad(dbze)}
+            if sr is not None:
+                if cfg.use_vgrid:
+                    # stat-grid profiles are ground-ascending; the
+                    # first-attenuation scan walks top->surface
+                    # (llnl_stats.F90:109), so flip, scan, flip back
+                    freq, tcc = lidar_only_freq_cloud(sr.flip(-1),
+                                                      dbze.flip(-1))
+                    freq = freq.flip(-1)
+                else:
+                    freq, tcc = lidar_only_freq_cloud(sr, dbze)
+                out["radar"]["lidar_only_freq_cloud"] = freq
+                out["radar"]["radar_lidar_tcc"] = tcc
 
     return out
 

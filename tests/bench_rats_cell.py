@@ -1,8 +1,9 @@
-"""The CPU tests' runs of the RATS cell (rrtmg.rats_heartbeat_c90): a
-small checkout of the benchmark (BENCHMARK.json and benchmark/ copied,
-the packages linked in, the cell cut to a few columns), a run of the
-cell in a fresh process, which loads no jax (the tests' own process
-has), and the faults a run may break the port's RATS with."""
+"""The CPU tests' runs of the RATS cell (rrtmg.rats_heartbeat_c90), or
+of another cell named: a small checkout of the benchmark (BENCHMARK.json
+and benchmark/ copied, the packages linked in, the cell cut to a few
+columns), a run of the cell in a fresh process, which loads no jax (the
+tests' own process has), and the faults a run may break the port's RATS
+with."""
 
 import json
 import os
@@ -23,7 +24,7 @@ BENCH = os.path.join(ROOT, "benchmark")
 CELL = "rrtmg.rats_heartbeat_c90"
 
 
-def small_root(dest, columns=64, block=32):
+def small_root(dest, columns=64, block=32, cell=CELL):
     """The checkout under dest; the cell runs `columns` columns and its
     reference blocks of `block`."""
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dest)
@@ -32,7 +33,7 @@ def small_root(dest, columns=64, block=32):
     for pkg in ("geosradiation_gridcomp_tpu_torch",
                 "geosradiation_gridcomp_tpu"):
         os.symlink(os.path.join(ROOT, pkg), os.path.join(dest, pkg))
-    path = os.path.join(dest, "benchmark", "workloads", f"{CELL}.json")
+    path = os.path.join(dest, "benchmark", "workloads", f"{cell}.json")
     with open(path) as f:
         w = json.load(f)
     w["traffic"]["columns"] = columns
@@ -100,11 +101,11 @@ print(json.dumps(dict(out=out, modules=top)))
 """
 
 
-def run_cell(root, seed, fault=None):
+def run_cell(root, seed, fault=None, cell=CELL):
     """(run.run's result of one run of the cell under root in a fresh
     process on the CPU, the top-level modules it loaded, its stderr)."""
     code = RUN.format(bench=os.path.join(root, "benchmark"), here=HERE,
-                      fault=fault, cell=CELL, seed=seed, root=root)
+                      fault=fault, cell=cell, seed=seed, root=root)
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600, cwd=root,
                        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
