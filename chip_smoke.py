@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels (K1 McICA + LW cloud optics, K2 McICA + SW
 cloud optics, K3 taumol-LW, K4 rtrnmc, K5 taumol-SW, K6 spcvmc, K7 raw
-McICA draws, K8 RRTMGP's McICA draws, K9 the LW table rows, P1 forward
-fill, P2 table gathers, P3 taumol-LW bisection)
+McICA draws, K8 RRTMGP's McICA draws, K9 the LW table rows, K10 RRTMGP's
+SW solver, K11 the COSP radar's DSD integrals, P1 forward fill, P2 table
+gathers, P3 taumol-LW bisection)
 from geosradiation_gridcomp_tpu_torch/csrc with nvcc for sm_90a, one
 nvcc per source side by side, then:
 
@@ -172,7 +173,9 @@ nvcc per source side by side, then:
    subcolumns, every simulator, the 40-bin CloudSat stat grid) at 8192
    points x 50 subcolumns x 72 levels on a scene made from the realistic
    one (satsim_inputs), key 11: the first call's ms and the growth of
-   the graph pool it captures into, one of its own; no kernel may launch; every group and key present, each value
+   the graph pool it captures into, one of its own; K11 (the radar's DSD
+   integrals) launches once a call and no other kernel; every group and
+   key present, each value
    finite or one of the reference's fill values, the ranges the
    reference's satsim tests check; the same call on the first 256 points
    on the card and on the CPU: frac_out, prec_frac and the MODIS phases
@@ -183,7 +186,11 @@ nvcc per source side by side, then:
    both routes under set_sync_debug_mode("error"); eager / captured /
    captured / eager wall and CUDA-event ms; the peak memory of each
    route beside the pool's; the radar alone on the arguments of an eager
-   call; then the phase's graph is dropped;
+   call: K11 against its twin (dBZe fields within 1e-3 dB where not a
+   fill, fills in place, h_atten relmax 1e-4, equal to itself over two
+   runs, its counter the twin's count of present pairs), its route's,
+   device and twin's times and its bound (benchmark/roofline/K11.py's
+   bytes); then the phase's graph is dropped;
 12. parallel phase: the step's refresh through shard_columns(
    column_mesh(), inp) + run_sharded at 8192 x 72, bitwise equal to the
    unsharded refresh, K1-K6 launched; in two shards on the one card,
@@ -221,8 +228,8 @@ rats_update and of cosp_simulator, replayed and eager.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches (counted on the path named by its `path`: step, verify or
-profiling, and K8's rrtmgp; launches_per_refresh for the step kernels
-and K8; launches_by_path on every path that launched it, K1, K3, K4 and
+profiling, K8's and K10's rrtmgp, K11's satsim; launches_per_refresh
+for the step kernels and K8; launches_by_path on every path that launched it, K1, K3, K4 and
 K9 also on rats, K3, K4, K5 and K9 also on rrtmgp, K8 and K9 also on
 rrtmgp_native, K1-K6 and K9 also on driver and parallel), error,
 times, bound and library time, and as its last line
@@ -2192,17 +2199,71 @@ def satsim_compare(torch, card, cpu, ncol):
     return flips, total
 
 
+def quickbeam_result(torch, args, kw):
+    """K11 on the arguments the eager cosp body gave quickbeam_simulator:
+    against its twin (the same call under twins()): dbze and ze_non within
+    1e-3 dB where not a fill, the fills in the same places, h_atten
+    relmax 1e-4, g_atten the twin's; equal to itself over two runs; its
+    counter the twin's count of present (volume, class) pairs; the
+    route's (CUDA events), the kernel's (device) and the twin's times; the
+    bound: benchmark/roofline/K11.py's bytes (the five mixing ratios, four
+    profiles and three outputs once; the radii and the size work left
+    out)."""
+    from geosradiation_gridcomp_tpu_torch.satsim import radar
+    qb = radar.quickbeam_simulator
+    hm = args[4]
+    print(f"K11 (quickbeam) at {tuple(hm.shape)}, classes {kw['classes']}:")
+
+    def run():
+        return qb(*args, **kw)
+    got, again = run(), run()
+    key = (kw["classes"], tuple(hm.shape[1:]), str(hm.dtype))
+    present = radar.counts()[key]["present"]
+    want = on_twins(run)()
+    r = dict(max_abs_err=0.0, library_ms=None)
+    for k in ("dbze", "ze_non"):
+        fill = want[k] == radar.MISSING_DBZ
+        gate(f"K11 {k} fill mismatches",
+             float(((got[k] == radar.MISSING_DBZ) != fill).sum()), 0)
+        err = max_abs(got[k][~fill], want[k][~fill])
+        gate(f"K11 {k} max dB error", err, 1e-3)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    gate("K11 h_atten relmax", relmax(got["h_atten"], want["h_atten"]), 1e-4)
+    for k in got:
+        gate(f"K11 {k} run to run: unequal",
+             float((got[k] != again[k]).sum()), 0)
+    gate("K11 g_atten: unequal to the twin's",
+         float((got["g_atten"] != want["g_atten"]).sum()), 0)
+    pairs = int((hm > 1e-12).sum())
+    gate("K11 counter against the twin's pairs", abs(present - pairs), 0)
+    print(f"  (volume, class) pairs integrated {present} of {hm.numel()}")
+    del got, again, want
+    npnt, ncol, nlev = hm.shape[1:]
+    moved = 4 * (5 * npnt * ncol * nlev + 4 * npnt * nlev
+                 + 3 * npnt * ncol * nlev)
+    r["ms"] = time_ms(torch, run, 20)
+    r["device_ms"] = kernel_device_ms(torch, "quickbeam", run)
+    r["plain_ms"] = time_ms(torch, on_twins(run), 3)
+    r["bound_ms"], r["bound_by"] = bound(moved)
+    print(f"  route {r['ms']:.4f} ms, kernel device {r['device_ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.2f} ms), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f} % of the "
+          f"route)")
+    return r
+
+
 def satsim_phase(torch, dev, profile=False):
     """The COSP satellite simulators at full width on the card through the
-    captured cosp_simulator, no kernel launched: the first call and the
+    captured cosp_simulator, K11 its one kernel: the first call and the
     graph pool's growth; every group and key, finite or a fill value,
     within the reference tests' ranges; against the same call on the CPU
     on 256 points; the replays bitwise equal to the eager body
     (op_by_op) at keys 11 and 12; replay and eager body sync-free; both
     routes' times and peak memory beside the pool's; the radar alone on
-    the arguments of an eager call (with profile, where each route's
-    time goes and its idle share); then the phase's graphs are
-    dropped."""
+    the arguments of an eager call, K11 against its twin
+    (quickbeam_result; with profile, where each route's time goes and its
+    idle share); then the phase's graphs are dropped. Returns the first
+    call's launches and K11's result."""
     from geosradiation_gridcomp_tpu_torch.driver import compiled
     from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
     from geosradiation_gridcomp_tpu_torch.ops import threefry
@@ -2237,8 +2298,9 @@ def satsim_phase(torch, dev, profile=False):
         compiled.graph_pool = shared
     launches = dict(LAUNCHES)
     print(f"  kernel launches in the satsim path: {launches}")
-    if launches:
-        raise AssertionError(f"the satsim path launched {launches}")
+    if launches != {"quickbeam": 1}:
+        raise AssertionError(f"the satsim path launched {launches}, not K11 "
+                             f"once")
     print(f"  first call (warm-up + capture + replay) {first_ms:.1f} ms; "
           f"graph pool +{pool_mib:.1f} MiB for the key")
     satsim_checks(torch, out, cfg, NCOL_SLICE)
@@ -2288,12 +2350,14 @@ def satsim_phase(torch, dev, profile=False):
           f"{kw['classes']}) {radar:.1f} ms by CUDA events (mean of 3): "
           f"{100 * radar / ev['eager']:.1f} % of the eager call, "
           f"{100 * radar / ev['captured']:.1f} % of the replay")
+    k11 = quickbeam_result(torch, args, kw)
     del qb_calls, args, kw
     if profile:
         device_profile(torch, "cosp_simulator, replayed", run, 1, top=12)
         device_profile(torch, "cosp_simulator, eager", eager_run, 1, top=12)
     drop_graphs(torch, dev, cfg, (cosp.cosp_simulator,))
-    return dict(flips=flips, counts=total)
+    print(f"  flipped histogram counts against the CPU: {flips} of {total}")
+    return launches, k11
 
 
 def parallel_phase(torch, step):
@@ -2662,6 +2726,10 @@ SOURCES = {
     # K10 too: RRTMGP's SW solver, both streams
     "rte_sw": (_CSRC + "rte_sw.cu", _REF + "models/rrtmgp/rte.py:20",
                "rrtmgp", "rte_sw_kernel"),
+    # K11 too: the COSP radar's DSD integrals, path integral and dBZe
+    "quickbeam": (_CSRC + "quickbeam.cu",
+                  _REF + "satsim/radar.py:274", "satsim",
+                  "quickbeam_kernel"),
 }
 # launches a step refresh makes of each step kernel: one, but K9's two
 # (the cloud rows and the Planck rows of the LW solve)
@@ -2740,7 +2808,8 @@ def main():
                                    torch, step, args.profile)
     paths["driver"] = timed("driver", driver_phase, torch, step,
                             args.profile)
-    timed("satsim", satsim_phase, torch, dev, args.profile)
+    paths["satsim"], results["quickbeam"] = timed(
+        "satsim", satsim_phase, torch, dev, args.profile)
     paths["parallel"] = timed("parallel", parallel_phase, torch, step)
     print(f"phase seconds: {json.dumps(seconds)}")
     loaded = sorted(m for m in sys.modules

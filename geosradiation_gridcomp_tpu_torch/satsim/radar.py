@@ -15,16 +15,23 @@ the llnl CFAD/radar statistics):
   * Liquid refractive index: Ray (1972) Debye form as in optics_lib
     m_wat; ice: Maetzler (2006) microwave model.
 
-The DSD planes are [points, subcolumns, levels, 85 sizes]: at 8192 x 50
-x 72 one float32 plane is 10 GB. quickbeam_simulator therefore runs the
-points in blocks (each point is independent and nothing is drawn, so the
-result is that of one unblocked call). Which classes it integrates is
-static (`classes`, a tuple): a class absent at a point adds exact zeros
-there, so a caller that knows a class is never present (cosp's convective
-classes) leaves its planes out, and no call reads the device to decide.
-Its tables go to the device once per device (tables.on_device).
-`counts()` says, per key of shapes the body has run at, how it blocked
-the points and the bytes of the DSD planes one call materialises.
+On a card (kernels.twins.use_kernel) quickbeam_simulator launches kernel
+K11 (radar_cuda.py, csrc/quickbeam.cu): the DSD integrals as weighted
+sums of each present class's N(D), evaluated in registers, the path
+integral and dBZe in one launch over every point, no N(D) plane written;
+the gas path stays in PyTorch (gas_path). Otherwise (the CPU, or inside
+twins()) it runs the plain twin below, K11's reference: the DSD planes
+are [points, subcolumns, levels, 85 sizes], at 8192 x 50 x 72 one
+float32 plane is 10 GB, so the twin runs the points in blocks (each point
+is independent and nothing is drawn, so the result is that of one
+unblocked call). Which classes it integrates is static (`classes`, a
+tuple): a class absent at a point adds exact zeros there, so a caller
+that knows a class is never present (cosp's convective classes) leaves
+its planes out, and no call reads the device to decide. Its tables go to
+the device once per device (tables.on_device). `counts()` says, per key
+of shapes the radar has run at, how it blocked the points and the bytes
+of the DSD planes one call materialises (none on K11's path, which also
+counts the (volume, class) pairs it integrated).
 
 Hydrometeor classes default to the GEOS 9-class table
 (cosp_constants.F90:116-127): LSL, LSI, LSR, LSS, CVL, CVI, CVR, CVS,
@@ -37,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.twins import use_kernel
 from ..tables import load64, on_device
 
 R_UNDEF = -1.0e30
@@ -58,8 +66,9 @@ RHO_ICE = 917.0
 # bytes of one [points, subcolumns, levels, ND] float32 plane per block
 PLANE_BYTES = 1 << 30
 
-# per (classes, [np, ncol, nlev], dtype) that quickbeam_simulator's body
-# has run at: its blocks, points per block, classes and plane bytes
+# per (classes, [np, ncol, nlev], dtype) that quickbeam_simulator has run
+# at: its blocks, points per block, classes and plane bytes (on K11's
+# path also `kernel` and its device counter `present`)
 _COUNTS = {}
 
 
@@ -69,10 +78,16 @@ def counts():
     `blocks`, `points_per_block`, `classes` (the number integrated),
     `points` and `plane_bytes`, the bytes of the [block, ncol, nlev, ND]
     N(D) planes, one a class and block, that one call materialises. They
-    are recorded when the body runs (eagerly, or the warm-up and capture
+    are recorded when the radar runs (eagerly, or the warm-up and capture
     of a captured caller); a replay repeats that work, so they describe
-    every call of the key. Copies, as diagnostics.counts() gives."""
-    return {k: dict(v) for k, v in _COUNTS.items()}
+    every call of the key. K11's path records one block of every point
+    and plane_bytes 0, since it writes no plane, and also `kernel` (True)
+    and `present`: the (point, subcolumn, level, class) quadruples whose
+    class it integrated (q > 1e-12) in the key's last call, kept on the
+    device by the kernel and read here, which synchronises. Copies, as
+    diagnostics.counts() gives."""
+    return {k: {n: int(x) if isinstance(x, torch.Tensor) else x
+                for n, x in v.items()} for k, v in _COUNTS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +314,16 @@ def gases_liebe(p_hpa, t_k, rh, f_ghz=FREQ_GHZ):
     return 0.182 * f * (term1 + term2 + term3 + term4)
 
 
+def gas_path(hgt_km, p_hpa, t_c, rh):
+    """Two-way gaseous attenuation from the radar (TOA) to each level (dB),
+    [np, 1, nlev]: the trapezoid cumulative over height of gases_liebe."""
+    dz = (hgt_km[:, 1:] - hgt_km[:, :-1]).abs()[:, None, :]
+    g_vol = gases_liebe(p_hpa, t_c + 273.15, rh)     # [np, nlev]
+    gm = 0.5 * (g_vol[:, 1:] + g_vol[:, :-1])[:, None, :] * dz
+    return torch.cat([torch.zeros_like(gm[..., :1]),
+                      torch.cumsum(gm, dim=-1)], dim=-1)
+
+
 def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
                         k2=K2_94, do_ray=False, use_gas_abs=True,
                         classes=None):
@@ -314,8 +339,9 @@ def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
         range(nclass), as the reference integrates every class. A class
         left out adds what an absent one would: exact zeros.
 
-    The points run in blocks of as many as keep one [block, ncol, nlev,
-    ND] float32 plane within PLANE_BYTES.
+    K11 (radar_cuda.quickbeam_kernel) where kernels.twins.use_kernel
+    holds; otherwise the plain twin, whose points run in blocks of as many
+    as keep one [block, ncol, nlev, ND] float32 plane within PLANE_BYTES.
 
     Returns dict: dbze [np, ncol, nlev] attenuated reflectivity (dBZe),
     ze_non (unattenuated), h_atten/g_atten [np, ncol/1, nlev] (dB).
@@ -325,6 +351,10 @@ def quickbeam_simulator(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
         raise ValueError(f"quickbeam_simulator: {len(classes)} classes "
                          f"for {hm_gkg.shape[0]} hm and {re_um.shape[0]} "
                          f"re planes")
+    if use_kernel(hm_gkg):
+        from .radar_cuda import quickbeam_kernel   # it imports this module
+        return quickbeam_kernel(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um,
+                                classes, k2, do_ray, use_gas_abs)
     npnt = hgt_km.shape[0]
     per_point = hm_gkg[0, 0].numel() * ND * hm_gkg.element_size()
     points_per_block = max(1, PLANE_BYTES // per_point)
@@ -422,10 +452,7 @@ def _quickbeam_block(hgt_km, p_hpa, t_c, rh, hm_gkg, re_um, classes, k2,
     a_to_vol = 2.0 * torch.cat([torch.zeros_like(seg[..., :1]),
                                 torch.cumsum(seg, dim=-1)], dim=-1)
     if use_gas_abs:
-        g_vol = gases_liebe(p_hpa, t_c + 273.15, rh)     # [np, nlev]
-        gm = 0.5 * (g_vol[:, 1:] + g_vol[:, :-1])[:, None, :] * dz
-        g_to_vol = torch.cat([torch.zeros_like(gm[..., :1]),
-                              torch.cumsum(gm, dim=-1)], dim=-1)
+        g_to_vol = gas_path(hgt_km, p_hpa, t_c, rh)
     else:
         g_to_vol = torch.zeros_like(a_to_vol)
 

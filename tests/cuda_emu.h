@@ -102,6 +102,38 @@ inline int __any_sync(unsigned, int pred) {
     bar.arrive_and_wait();
     return any;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+    const int t = emu::linear(), lane = t % 32;
+    auto& bar = *emu::warp_bars[t / 32];
+    emu::xchg[t] = pred ? 1.0f : 0.0f;
+    bar.arrive_and_wait();
+    unsigned bits = 0;
+    for (unsigned i = t - lane; i < t - lane + 32 && i < emu::nthreads(); ++i)
+        if (emu::xchg[i] != 0.0f) bits |= 1u << (i - (t - lane));
+    bar.arrive_and_wait();
+    return bits;
+}
+// lane src's value; float and int (exchanged through the float array bit
+// for bit)
+inline float __shfl_sync(unsigned, float v, int src) {
+    const int t = emu::linear(), lane = t % 32;
+    auto& bar = *emu::warp_bars[t / 32];
+    emu::xchg[t] = v;
+    bar.arrive_and_wait();
+    const float r = emu::xchg[t - lane + (src & 31)];
+    bar.arrive_and_wait();
+    return r;
+}
+inline int __shfl_sync(unsigned m, int v, int src) {
+    float f, r;
+    std::memcpy(&f, &v, 4);
+    r = __shfl_sync(m, f, src);
+    int out;
+    std::memcpy(&out, &r, 4);
+    return out;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 namespace emu {
 struct Copy {
     void* dst;

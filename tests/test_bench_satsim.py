@@ -283,7 +283,7 @@ def test_entries_in_benchmark_json(bench):
     assert [m["name"] for m in cell.end_to_end] == [
         "cycle_ms", "peak_mem_gib", "setup_s"]
     assert [m["name"] for m in cell.per_layer] == [
-        "graph_pool_gib", "capture_s", *EXPECTED]
+        "graph_pool_gib", "capture_s", *EXPECTED, "K11_roofline"]
     per_layer = {m["name"]: m for m in spec["per_layer"]}
     for name in EXPECTED:
         m = per_layer[name]
@@ -294,6 +294,9 @@ def test_entries_in_benchmark_json(bench):
     first = names.index(EXPECTED[0])
     assert names[first:first + len(EXPECTED)] == list(EXPECTED)
     assert first == names.index("K10_roofline") + 1
+    k11 = per_layer["K11_roofline"]
+    assert names[-1] == "K11_roofline" and k11["layer"] == LAYER
+    assert k11["moves"] == "cycle_ms" and k11["workloads"] == [CELL]
     cells = [w["name"] for w in spec["workloads"]]
     assert cells.index(CELL) == cells.index("rrtmg.rats_heartbeat_c90") + 1
     assert cell.entry["chips"] == 1

@@ -46,11 +46,15 @@ sharding: the refresh over column_mesh() and over two shards on the one
 card bitwise equal to the unsharded one, K1-K6 launched; StagedFeed's
 round trip through pinned memory and a side stream. The satellite
 simulators: cosp_simulator on the card against the CPU (integers exact,
-fill values in place, counts exact, floats <= 5e-5, no kernel), the
-radar's point blocks bitwise equal to one unblocked call, and
-cosp_simulator captured at 64 points x 50 subcolumns x 72 levels: replays
-at keys 11 and 12 bitwise equal to the eager body under
-disable_capture(), one graph for the key, both under
+fill values in place, counts exact, floats <= 5e-5, K11 launched once),
+K11 (the radar's DSD integrals) at 64 points x 50 subcolumns x 72 levels
+against its twin, every class and cosp's five (every class also at 16 and
+6 levels), with and without Rayleigh and gas path (dBZe fields within
+1e-3 dB where not a fill, fills in place, h_atten relmax <= 1e-4, one
+launch a call, sync-free, its counter the twin's count), the twin's point blocks bitwise equal to one unblocked
+call, and cosp_simulator captured at 64 points x 50 subcolumns x 72
+levels: replays at keys 11 and 12 bitwise equal to the eager body under
+disable_capture(), one graph for the key, K11 once a call, both under
 set_sync_debug_mode("error"), a key off the inputs' device refused. The captured
 step entries at 64 x 72: replays bitwise equal to the eager bodies at two
 doy values and on two scenes, K1-K6 counted once per replay, outputs of
@@ -131,11 +135,13 @@ from geosradiation_gridcomp_tpu_torch.parallel.sharding import (
 from geosradiation_gridcomp_tpu_torch.satsim import (SatsimConfig,
                                                      SatsimInputs,
                                                      cosp_simulator, radar)
+from geosradiation_gridcomp_tpu_torch.satsim import cosp as cosp_mod
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from chip_smoke import satsim_inputs  # noqa: E402
+from torch_radar_args import radar_arrays  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1180,10 +1186,11 @@ def test_cosp_on_the_card_matches_the_cpu(dev):
     """cosp_simulator on the card against the CPU, key 11: frac_out and
     the MODIS phases exact, fill values in the same places, counts
     exact, the other floats <= 5e-5 relmax (meantaucld compared as the
-    mean albedo it is a steep function of); no kernel launched."""
+    mean albedo it is a steep function of); K11, the radar, launched once
+    and no other kernel."""
     LAUNCHES.clear()
     card = cosp_simulator(threefry.key(11, device=dev), _cosp_scene(dev))
-    assert not LAUNCHES
+    assert dict(LAUNCHES) == {"quickbeam": 1}
     cpu = dict(_leaves(cosp_simulator(threefry.key(11, device="cpu"),
                                       _cosp_scene("cpu"))))
     fills = torch.tensor([-1.0e30, -999.0, -999.0e-6, -1.0e20])
@@ -1203,10 +1210,76 @@ def test_cosp_on_the_card_matches_the_cpu(dev):
             assert relmax(a, b) <= 5e-5, name
 
 
+@pytest.fixture(scope="module")
+def radar_case(dev):
+    """The radar's arguments on the card at 64 points x 50 subcolumns x 72
+    levels: tests/torch_radar_args.py:radar_arrays (all 9 classes) with point 0's
+    top five levels at -100 C, point 1's lowest five at 30 C and rain in
+    every subcolumn of point 2 at levels 30-37 (K11's dense levels), and
+    the five-class call cosp_simulator_eager makes on chip_smoke's satsim
+    scene (no graupel)."""
+    args = [torch.as_tensor(a, device=dev)
+            for a in radar_arrays(64, 50, NLEV)]
+    args[2][0, :5], args[2][1, -5:] = -100.0, 30.0
+    args[4][2, 2, :, 30:38] = 0.5
+    seen, saved = [], cosp_mod.quickbeam_simulator
+    cosp_mod.quickbeam_simulator = lambda *a, **k: seen.append((a, k)) or \
+        saved(*a, **k)
+    try:
+        cosp_mod.cosp_simulator_eager(threefry.key(5, device=dev),
+                                      satsim_inputs(torch, 64, dev))
+    finally:
+        cosp_mod.quickbeam_simulator = saved
+    (a, k), = seen
+    return {"all": (args, tuple(range(9))),
+            "cosp": ([x.contiguous() for x in a], k["classes"])}
+
+
+@pytest.mark.parametrize("which,nlev", [("all", NLEV), ("cosp", NLEV),
+                                        ("all", 16), ("all", 6)])
+@pytest.mark.parametrize("do_ray,use_gas_abs", [(False, True), (True, True),
+                                                (False, False)])
+def test_k11_matches_plain_on_the_card(radar_case, which, nlev, do_ray,
+                                       use_gas_abs):
+    """K11 at 64 points x 50 subcolumns x 72 levels against its twin
+    (quickbeam_simulator under twins()), and at the top 16 and 6 levels
+    (blocks of 64 and 32 threads, fewer than the 9 classes' 81
+    parameters): the same keys and shapes; dbze, ze_non and ze_ray within
+    1e-3 dB where not a fill and the fills in the same places; h_atten
+    relmax <= 1e-4; g_atten the twin's; one launch a call, sync-free,
+    equal to itself over two runs; its counter the twin's count of present
+    (volume, class) pairs."""
+    args, classes = radar_case[which]
+    args = [a[..., :nlev].contiguous() for a in args]
+    kw = dict(do_ray=do_ray, use_gas_abs=use_gas_abs, classes=classes)
+    radar.quickbeam_simulator(*args, **kw)        # tables to the card
+    LAUNCHES.clear()
+    got, again = _sync_free(*[lambda: radar.quickbeam_simulator(*args, **kw)]
+                            * 2)
+    assert dict(LAUNCHES) == {"quickbeam": 2}
+    with twins():
+        want = radar.quickbeam_simulator(*args, **kw)
+    assert dict(LAUNCHES) == {"quickbeam": 2}
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("dbze", "ze_non") + (("ze_ray",) if do_ray else ()):
+        fill = want[k] == radar.MISSING_DBZ
+        assert torch.equal(got[k] == radar.MISSING_DBZ, fill), k
+        assert float((got[k] - want[k])[~fill].abs().max()) <= 1e-3, k
+    assert relmax(got["h_atten"], want["h_atten"]) <= 1e-4
+    assert torch.equal(got["g_atten"], want["g_atten"])
+    radar.quickbeam_simulator(*args, **kw)
+    hm = args[4]
+    assert radar.counts()[(classes, tuple(hm.shape[1:]), "torch.float32")][
+        "present"] == int((hm > 1e-12).sum())
+
+
 def test_quickbeam_blocks_on_the_card(dev, monkeypatch):
-    """The radar's DSD planes in blocks of 3 points (8 points, 50
-    subcolumns, 40 levels, every class present) equal the unblocked call
-    bit for bit on the card."""
+    """The radar's twin, its DSD planes in blocks of 3 points (8 points,
+    50 subcolumns, 40 levels, every class present), equals the unblocked
+    call bit for bit on the card."""
     gen = torch.Generator(dev).manual_seed(0)
     shape = (9, 8, 50, 40)
     z = torch.linspace(16.0, 0.3, 40, device=dev).expand(8, 40)
@@ -1218,9 +1291,10 @@ def test_quickbeam_blocks_on_the_card(dev, monkeypatch):
     re = 300.0 * torch.rand(shape, device=dev, generator=gen)
     plane = 50 * 40 * radar.ND * 4
     monkeypatch.setattr(radar, "PLANE_BYTES", 8 * plane)
-    whole = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
-    monkeypatch.setattr(radar, "PLANE_BYTES", 3 * plane)
-    parts = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
+    with twins():
+        whole = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
+        monkeypatch.setattr(radar, "PLANE_BYTES", 3 * plane)
+        parts = radar.quickbeam_simulator(z, p, tc, rh, hm, re, do_ray=True)
     for k in whole:
         assert torch.equal(parts[k], whole[k]), k
 
@@ -1230,8 +1304,9 @@ def test_cosp_replays_bitwise_equal_eager(dev):
     satsim scene, graupel in the snow's levels) captured once: replays at
     keys 11 and 12 bitwise equal to the eager body under
     disable_capture() (and the two keys' outputs not equal: the key is
-    traced), one graph for config None and SatsimConfig(), no kernel
-    launched, replay and eager body under set_sync_debug_mode("error");
+    traced), one graph for config None and SatsimConfig(), K11 launched
+    once a call and no other kernel, replay and eager body under
+    set_sync_debug_mode("error");
     a key on the CPU with inputs on the card is refused."""
     inp = satsim_inputs(torch, 64, dev)
     inp = inp._replace(qg=0.5 * inp.qs)
@@ -1248,7 +1323,7 @@ def test_cosp_replays_bitwise_equal_eager(dev):
                 return cosp_simulator(key, inp)
         got, want = _sync_free(
             lambda: cosp_simulator(key, inp, SatsimConfig()), eager)
-        assert not LAUNCHES
+        assert dict(LAUNCHES) == {"quickbeam": 2}
         want = dict(_leaves(want))
         for name, a in _leaves(got):
             assert a.dtype == want[name].dtype, name

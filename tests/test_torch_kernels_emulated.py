@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K10 and P1-P3 run on the CPU against their plain
+"""The CUDA sources of K1-K11 and P1-P3 run on the CPU against their plain
 PyTorch twins.
 
 g++ compiles geosradiation_gridcomp_tpu_torch/csrc/*.cu against a host
@@ -32,7 +32,15 @@ gates of its twin, relmax <= 5e-4 and no column beyond 5e-5, the latter
 against the twin with its exp rounded from float64 as libm's expf rounds
 (torch's CPU exp is Sleef's, within 1 ulp, and an ulp of exp moves the
 clear sky's upward flux by up to 7e-5 where w sits at its clip); its
-wrapper's refusals.
+wrapper's refusals. K11 (the radar's DSD integrals, path integral and
+dBZe) against its twin, every class and the five cosp integrates, with
+and without Rayleigh and gas path, on a chunked and a ragged level count:
+dbze, ze_non and ze_ray within 1e-3 dB where not a fill, the fills in the
+same places, h_atten relmax <= 1e-4 (the twin's trapezoid terms, each
+rounded, become weighted sums over weights folded in float64 and rounded
+once, summed in size order; ~3e-5 dB and ~1e-7 here), g_atten the twin's
+bit for bit; its path's counts (no plane, its counter equal to the twin's
+count of present (volume, class) pairs); its wrapper's refusals.
 """
 
 import ctypes
@@ -41,6 +49,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -75,8 +84,12 @@ from geosradiation_gridcomp_tpu_torch.models.rrtmgp import scheme as gp
 from geosradiation_gridcomp_tpu_torch.models.rrtmgp.rte import rte_sw as rte
 from geosradiation_gridcomp_tpu_torch.ops import (ffill_cuda, gather_cuda,
                                                   mcica, mcica_cuda,
-                                                  mcica_gmr_cuda)
+                                                  mcica_gmr_cuda, threefry)
+from geosradiation_gridcomp_tpu_torch.satsim import SatsimConfig, cosp
+from geosradiation_gridcomp_tpu_torch.satsim import radar as qb
+from geosradiation_gridcomp_tpu_torch.satsim import radar_cuda
 from geosradiation_gridcomp_tpu_torch.scene import example_inputs
+from tests.torch_radar_args import radar_arrays
 
 torch.set_num_threads(1)
 
@@ -764,6 +777,145 @@ def test_k10_wrapper_refuses_what_the_kernel_does_not_take(case, sw_case):
     want = rte(*args, **aero)
     assert torch.equal(allsky["flux_up"], want["flux_up"])
     assert dict(LAUNCHES) == before
+
+
+@pytest.fixture(scope="module")
+def radar_case():
+    """The radar's arguments: radar_arrays (all 9 classes, 3 points x 50
+    subcolumns x 40 levels) with point 0's top five levels at -100 C and
+    point 1's lowest five at 30 C, beyond both Mie tables' ends, and rain
+    in every subcolumn of point 2 at levels 30-37 (the kernel's dense
+    levels; elsewhere a level's few present volumes are shared out over
+    the warp); and the five-class call cosp_simulator_eager makes on
+    chip_smoke's satsim scene at 6 points x 16 subcolumns x 72 levels (no
+    graupel)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from chip_smoke import satsim_inputs
+    args = [torch.as_tensor(a) for a in radar_arrays(3, 50, 40)]
+    args[2][0, :5], args[2][1, -5:] = -100.0, 30.0
+    args[4][2, 2, :, 30:38] = 0.5
+    seen, saved = [], cosp.quickbeam_simulator
+    cosp.quickbeam_simulator = lambda *a, **k: seen.append((a, k)) or \
+        saved(*a, **k)
+    try:
+        cosp.cosp_simulator_eager(threefry.key(5, device="cpu"),
+                                  satsim_inputs(torch, 6, "cpu"),
+                                  SatsimConfig(ncolumns=16))
+    finally:
+        cosp.quickbeam_simulator = saved
+    (a, k), = seen
+    assert k["classes"] == cosp.PRESENT and not bool(a[4][4].any())
+    return {"all": (args, tuple(range(9))),
+            "cosp": ([x.contiguous() for x in a], k["classes"])}
+
+
+def _k11(lib, args, classes, do_ray=False, use_gas_abs=True):
+    return radar_cuda.simulate(lib, *args, classes, qb.K2_94, do_ray,
+                               use_gas_abs)
+
+
+def _dbz_close(got, want, name):
+    """Fills in the same places, the rest within 1e-3 dB."""
+    fill = want == qb.MISSING_DBZ
+    assert torch.equal(got == qb.MISSING_DBZ, fill), name
+    assert bool((~fill).any()) and bool(fill.any()), name
+    assert float((got - want)[~fill].abs().max()) <= 1e-3, name
+
+
+@pytest.mark.parametrize("which,nlev,do_ray,use_gas_abs", [
+    ("all", 40, False, True), ("all", 40, True, True),
+    ("all", 40, False, False), ("all", 40, True, False),
+    ("all", 37, False, True), ("all", 130, True, True),
+    ("all", 16, True, True), ("all", 6, False, True),
+    ("cosp", 72, False, True)])
+def test_k11_emulated_matches_plain(lib, radar_case, which, nlev, do_ray,
+                                    use_gas_abs):
+    """K11 against its twin (quickbeam_simulator's blocked body): the same
+    keys in the same order and shapes; dbze, ze_non and ze_ray within
+    1e-3 dB where not a fill and the fills in the same places; h_atten
+    relmax <= 1e-4; g_atten the twin's; equal to itself over two runs (the
+    first case). 37 levels take the kernel's per-level loads and stores,
+    130 its 16 levels a thread (the profiles and each subcolumn's levels
+    repeated); 16 and 6 levels give a block of 64 and 32 threads, fewer
+    than the 81 parameters of the 9 classes (a launch with the classes
+    reversed goes first: the emulator's shared memory outlives a launch,
+    so a parameter a small block left unread from the call's own would
+    show)."""
+    args, classes = radar_case[which]
+    if nlev <= 16:
+        _k11(lib, args, classes[::-1])
+    if nlev > args[0].shape[-1]:
+        args = [torch.cat([a, a], dim=-1) for a in args]
+        args[0] = torch.cat([args[0][:, :40] + 16.0, args[0][:, 40:]], -1)
+    args = [a[..., :nlev].contiguous() for a in args]
+    got = _k11(lib, args, classes, do_ray, use_gas_abs)
+    again = _k11(lib, args, classes, do_ray, use_gas_abs) \
+        if (which, nlev, do_ray, use_gas_abs) == ("all", 40, False, True) \
+        else got
+    want = qb.quickbeam_simulator(*args, do_ray=do_ray,
+                                  use_gas_abs=use_gas_abs, classes=classes)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and torch.equal(got[k],
+                                                             again[k]), k
+    for k in ("dbze", "ze_non") + (("ze_ray",) if do_ray else ()):
+        _dbz_close(got[k], want[k], k)
+    assert relmax(got["h_atten"], want["h_atten"]) <= 1e-4
+    assert float(want["h_atten"].max()) > 1.0
+    assert torch.equal(got["g_atten"], want["g_atten"])
+
+
+def test_k11_kernel_path_counts(lib, radar_case, monkeypatch):
+    """K11's path records one block of every point, no plane, kernel True
+    and its device counter, read by counts() as the twin's count of
+    present (volume, class) pairs, q > 1e-12; per key, a copy, and the
+    twin's path at the same key records its planes again."""
+    monkeypatch.setattr(qb, "_COUNTS", {})
+    for which in ("all", "cosp"):
+        args, classes = radar_case[which]
+        _k11(lib, args, classes)
+        hm = args[4]
+        key = (classes, tuple(hm.shape[1:]), "torch.float32")
+        want = dict(blocks=1, points_per_block=hm.shape[1],
+                    classes=len(classes), points=hm.shape[1], plane_bytes=0,
+                    kernel=True, present=int((hm > 1e-12).sum()))
+        assert qb.counts()[key] == want
+        assert 0 < want["present"] < hm.numel()
+    qb.counts()[key]["present"] = 0
+    assert qb.counts()[key]["present"] == want["present"]
+    qb.quickbeam_simulator(*args, classes=classes)
+    got = qb.counts()[key]
+    assert "kernel" not in got and got["plane_bytes"] > 0
+
+
+def test_k11_wrapper_refuses_what_the_kernel_does_not_take(radar_case):
+    """quickbeam_kernel raises, and launches nothing, on a float64 input,
+    a non-contiguous one, more classes than it takes or than the rows
+    named, more levels than it takes, and CPU tensors; quickbeam_simulator on CPU tensors runs the
+    twin."""
+    from geosradiation_gridcomp_tpu_torch.kernels.build import LAUNCHES
+    args, classes = radar_case["all"]
+    kernel = radar_cuda.quickbeam_kernel
+    strided = args[4].transpose(2, 3).contiguous().transpose(2, 3)
+    ten = [torch.cat([a, a[:1]]) for a in args[4:]]
+    before = dict(LAUNCHES)
+    for err, match, a, c in (
+            (TypeError, "float32", (args[0].double(), *args[1:]), classes),
+            (ValueError, "contiguous", (*args[:4], strided, args[5]),
+             classes),
+            (ValueError, "classes", (*args[:4], *ten), classes + (0,)),
+            (ValueError, "classes", args, classes[:8]),
+            (ValueError, "levels", [torch.cat([x] * 7, -1)[..., :257]
+                                    .contiguous() for x in args], classes),
+            (ValueError, "CUDA", args, classes)):
+        with pytest.raises(err, match=match):
+            kernel(*a, c)
+    assert dict(LAUNCHES) == before
+    got = qb.quickbeam_simulator(*args)
+    assert dict(LAUNCHES) == before
+    assert qb.counts()[(classes, tuple(args[4].shape[1:]),
+                        "torch.float32")]["plane_bytes"] > 0
+    assert list(got) == ["dbze", "ze_non", "h_atten", "g_atten"]
 
 
 def test_p1_emulated_equals_plain(lib):

@@ -26,6 +26,7 @@ from geosradiation_gridcomp_tpu.satsim import lidar as jl
 from geosradiation_gridcomp_tpu.satsim import radar as jr
 from geosradiation_gridcomp_tpu_torch.satsim import lidar as tl
 from geosradiation_gridcomp_tpu_torch.satsim import radar as qb
+from tests.torch_radar_args import radar_arrays
 from tests.test_torch_satsim_scops_stats import compare, t
 
 torch.set_num_threads(1)
@@ -119,23 +120,9 @@ def test_mie_tables_and_class_table_equal_the_oracle():
 
 @pytest.fixture(scope="module")
 def radar_args():
-    """Every hydrometeor class present in a random subset of the
-    subcolumns, with radii given (and 0 = derive / class default) at
-    random; gridbox profiles from the surface to 16 km."""
-    rng = np.random.default_rng(6)
-    z = np.linspace(16.0, 0.3, NLEV)
-    hgt = np.tile(z, (NPNT, 1)).astype(np.float32)
-    p = (1000.0 * np.exp(-z / 7.5))[None, :].repeat(NPNT, 0)
-    tc = (15.0 - 6.5 * z)[None, :] + rng.uniform(-3, 3, (NPNT, 1))
-    rh = rng.uniform(20.0, 100.0, (NPNT, NLEV))
-    shape = (9, NPNT, NCOL, NLEV)
-    hm = np.where(rng.random(shape) < 0.15, rng.uniform(0.0, 1.0, shape),
-                  0.0)
-    re_scale = np.array([12., 40., 500., 800., 12., 40., 500., 800.,
-                         1000.])[:, None, None, None]
-    re = np.where(rng.random(shape) < 0.7,
-                  re_scale * rng.uniform(0.5, 1.5, shape), 0.0)
-    return tuple(np.asarray(a, np.float32) for a in (hgt, p, tc, rh, hm, re))
+    """tests/torch_radar_args.py:radar_arrays at 8 points x 50 subcolumns
+    x 40 levels."""
+    return radar_arrays(NPNT, NCOL, NLEV)
 
 
 @pytest.mark.parametrize("do_ray", [False, True])
